@@ -2,7 +2,7 @@
 
 Replaces every (testcase, format) group that appears in the PART file
 with the part file's records, keeping all other groups — the repair path
-for transiently-faulted groups (TPU UNAVAILABLE / remote-compile 500)
+for groups that were re-run (e.g. after a crashed ``--isolate`` child)
 without regenerating the whole corpus artifact.  The reference's
 append-only .json accumulation has no repair story at all
 (reference/test/csr.sh:3-14 just re-appends); one-generation artifacts
@@ -10,8 +10,8 @@ need one.
 
 Usage::
 
-    python -m bench.splice_sweep --into results/formats_full.jsonl \
-        --part /tmp/resweep.jsonl
+    python -m bench.splice_sweep --into chiprun_out/formats.jsonl \
+        --part chiprun_out/resweep.jsonl
 """
 
 from __future__ import annotations

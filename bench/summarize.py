@@ -8,7 +8,7 @@ human-readable layer the reference left to a plotting notebook
 
 Usage::
 
-    python -m bench.summarize results/formats_full.jsonl [--csv]
+    python -m bench.summarize chiprun_out/formats.jsonl [--csv]
 """
 
 from __future__ import annotations
@@ -35,17 +35,17 @@ def summarize(records):
     # --isolate parents write sweep_incomplete markers with only
     # (testcase, format) — no operand provenance — so they must flag
     # EVERY provenance-keyed group of that (testcase, format) rather
-    # than forming a phantom ("", "") group of their own (review r5:
-    # a fault-truncated group must never read as complete-and-green)
+    # than forming a phantom ("", "") group of their own: a truncated
+    # group must never read as complete-and-green
     incomplete_groups = set()
     for r in records:
         if r.get("sweep_incomplete") == "1":
             incomplete_groups.add((r.get("testcase", "?"),
                                    r.get("format", "?")))
             continue
-        # operand provenance is part of the group key (VERDICT r4 weak
-        # #5): a width-1024 bf16 record must not share a "best kernel"
-        # row with the width-256 f32 run of the same dir.  Legacy records
+        # operand provenance is part of the group key: a width-1024 bf16
+        # record must not share a "best kernel" row with the width-256
+        # f32 run of the same dir.  Legacy records
         # without the fields collapse into one ("", "") bucket per
         # (testcase, format), preserving the old behaviour.
         groups[(r.get("testcase", "?"), r.get("format", "?"),
@@ -57,30 +57,20 @@ def summarize(records):
     rows = []
     for (tc, fmt, bcols, bdt), recs in sorted(
             groups.items(), key=lambda kv: tuple(map(str, kv[0]))):
-        # > 2 µs: below the chained timer's noise floor the time itself
-        # is untrustworthy (see make_record's derived-throughput guard),
-        # so such records must not win best_kernel either
         timed = [r for r in recs
                  if r.get("correct") == "1"
-                 and r.get("tpuKernelTimeMs", 0) > 2e-3
+                 and r.get("kernelTimeMs", 0) > 0
                  and r.get("kernelType") not in ("0",)]
-        # Gate misses from opt-in verified-only variants (split2 etc.) are
-        # expected behaviour — the variant is only served after the gate
-        # passes — so they are tallied separately, not as failures.
         # Errored records (device fault / OOM: correct=="" + error field)
-        # are a third category: a RESOURCE_EXHAUSTED must never read as a
-        # numerics failure in the headline tally (VERDICT r3 weak #3).
-        n_bad = sum(r.get("correct") == "0" and r.get("verifiedOnly") != "1"
-                    for r in recs)
-        n_vo_miss = sum(r.get("correct") == "0" and r.get("verifiedOnly") == "1"
-                        for r in recs)
+        # are their own category: a fault must never read as a numerics
+        # failure in the tally.
+        n_bad = sum(r.get("correct") == "0" for r in recs)
         n_err = sum(r.get("correct", "") == "" and bool(r.get("error"))
                     for r in recs)
-        # an --isolate parent marks a group whose child crashed or stayed
-        # device-faulted after retries — a truncated group must never
-        # read as complete-and-green
+        # an --isolate parent marks a group whose child crashed — a
+        # truncated group must never read as complete-and-green
         incomplete = (tc, fmt) in incomplete_groups
-        best = min(timed, key=lambda r: r["tpuKernelTimeMs"]) if timed else None
+        best = min(timed, key=lambda r: r["kernelTimeMs"]) if timed else None
         vendor = next((r for r in timed if r.get("kernelType") == "-1"), None)
         rows.append({
             "testcase": tc,
@@ -89,17 +79,13 @@ def summarize(records):
             "bDtype": bdt,
             "records": len(recs),
             "incorrect": n_bad,
-            "vo_miss": n_vo_miss,
             "errored": n_err,
             "incomplete": "yes" if incomplete else "",
             "best_kernel": best.get("kernelName") or best.get("kernelType") if best else "-",
-            "best_ms": round(best["tpuKernelTimeMs"], 3) if best else None,
-            "gflops": round(best.get("gflops", 0), 2) if best else None,
-            # only meaningful above the chained timer's ~2 µs noise floor
-            # (same guard as make_record's derived-throughput fields)
-            "vs_vendor": (round(vendor["tpuKernelTimeMs"] / best["tpuKernelTimeMs"], 2)
-                          if best and vendor and best["tpuKernelTimeMs"] > 2e-3
-                          else None),
+            "best_ms": best["kernelTimeMs"] if best else None,
+            "gflops": best.get("gflops") if best else None,
+            "vs_vendor": (vendor["kernelTimeMs"] / best["kernelTimeMs"]
+                          if best and vendor else None),
         })
     return rows
 
@@ -124,13 +110,11 @@ def main(argv=None) -> int:
         for r in rows:
             print("| " + " | ".join(str(r[c]) for c in cols) + " |")
     total_bad = sum(r["incorrect"] for r in rows)
-    total_vo = sum(r["vo_miss"] for r in rows)
     total_err = sum(r["errored"] for r in rows)
     total_inc = sum(1 for r in rows if r["incomplete"])
     print(f"\n{len(rows)} groups, {total_bad} incorrect records total"
-          f" ({total_vo} verified-only gate misses, not served;"
-          f" {total_err} errored — device fault, correctness unknown;"
-          f" {total_inc} groups truncated by faults)",
+          f" ({total_err} errored — correctness unknown;"
+          f" {total_inc} groups truncated)",
           file=sys.stderr)
     return 0 if total_bad == 0 else 1
 

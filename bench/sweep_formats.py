@@ -8,7 +8,7 @@ writes newline-delimited JSON, plus a stderr summary table.
 Usage::
 
     python -m bench.sweep_formats --formats csr,coo,bsr,ell \
-        --out results/formats.jsonl [--data-root /root/reference/data] \
+        --out chiprun_out/formats.jsonl [--data-root data] \
         [--width 256] [--dirs small_32x32,medium_2048] [--repeats 5]
 """
 
@@ -20,82 +20,55 @@ import sys
 
 import numpy as np
 
-from tpuspmm.data import data_root as _data_root
-
-DEFAULT_ROOT = _data_root() or "data"
+# the corpus shipped with the checkout; resolved without importing the
+# package, so an --isolate parent never loads JAX
+DEFAULT_ROOT = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data")
 
 
 def _isolated_main(args, dirs) -> int:
-    """Parent loop for --isolate: one child process per data dir, each
-    appending to --out; a child killed by a poisoned-client fault is
-    probe-waited and re-run (fresh process = fresh client), so one dir's
-    OOM can neither zero its own group nor take down the rest of the
-    sweep.  The parent itself never initializes the JAX backend."""
+    """Parent loop for --isolate: one child process per (data dir,
+    format), each appending to --out, so one group's device-memory
+    exhaustion cannot take down the rest of the sweep.  The parent never
+    imports JAX, so the child is the only process on the card."""
+    import json
     import subprocess
 
     if args.out and args.fresh:
         open(args.out, "w").close()  # one generation — truncate up front
     rc_total = 0
-    # per-(dir, FORMAT) granularity: a fault in one format's group (e.g.
-    # the bsr einsum OOM on large_20000) poisons the client for every
-    # later group in the same process — the ell group's records would be
-    # all-fault garbage.  One process per group bounds the blast radius
-    # to the group that faulted.
-    units = [(d, f) for d in dirs for f in args.formats.split(",")]
-    for dirname, fmt in units:
-        tmp = (args.out + f".{dirname}.{fmt}.part") if args.out else None
-        # children run with --retries 0: the whole point of --isolate is
-        # that a poisoned client needs a FRESH process, so the parent's
-        # re-spawn IS the retry — nesting both would run a dead dir
-        # (retries+1)^2 times with await_tpu waits at both levels
-        cmd = [sys.executable, "-m", "bench.sweep_formats",
-               "--data-root", args.data_root, "--dirs", dirname,
-               "--formats", fmt, "--repeats", str(args.repeats),
-               "--retries", "0"]
-        if args.width is not None:
-            cmd += ["--width", str(args.width)]
-        if args.synth_b:
-            cmd.append("--synth-b")
-        if args.b_dtype != "f32":
-            cmd += ["--b-dtype", args.b_dtype]
-        if args.skip_seq:
-            cmd.append("--skip-seq")
-        if args.no_vendor:
-            cmd.append("--no-vendor")
-        if tmp:
-            # child writes a per-dir part file FRESH each attempt — a
-            # crashed attempt's partial records never reach the artifact,
-            # so a retried dir cannot leave two generations behind
-            cmd += ["--out", tmp, "--fresh"]
-        for attempt in range(args.retries + 1):
+    for dirname in dirs:
+        for fmt in args.formats.split(","):
+            tmp = (args.out + f".{dirname}.{fmt}.part") if args.out else None
+            cmd = [sys.executable, "-m", "bench.sweep_formats",
+                   "--data-root", args.data_root, "--dirs", dirname,
+                   "--formats", fmt, "--repeats", str(args.repeats)]
+            if args.width is not None:
+                cmd += ["--width", str(args.width)]
+            if args.synth_b:
+                cmd.append("--synth-b")
+            if args.b_dtype != "f32":
+                cmd += ["--b-dtype", args.b_dtype]
+            if args.skip_seq:
+                cmd.append("--skip-seq")
+            if args.no_vendor:
+                cmd.append("--no-vendor")
+            if tmp:
+                # the child writes a per-group part file fresh, so a
+                # crashed child's partial records never reach the artifact
+                cmd += ["--out", tmp, "--fresh"]
             rc = subprocess.run(cmd).returncode
-            # rc 1 = deterministic numerics failure — retrying replays
-            # the same records; only faults (rc 2) and crashes re-spawn
-            if rc in (0, 1) or attempt == args.retries:
-                break
-            print(f"# {dirname} {fmt}: child rc={rc} — waiting for the "
-                  f"TPU and re-running the group "
-                  f"({attempt + 1}/{args.retries})", file=sys.stderr)
-            from bench.await_tpu import await_tpu
-
-            await_tpu(budget_s=600)
-        if tmp and os.path.exists(tmp):
-            with open(args.out, "a") as out_f, open(tmp) as part:
-                out_f.write(part.read())
-                if rc not in (0, 1):
-                    # the child crashed or stayed device-faulted on its
-                    # final attempt — mark the group so downstream
-                    # readers never mistake a truncated group for a
-                    # complete-and-green one (rc 1 = numerics misses:
-                    # the group is complete, its incorrect records are
-                    # visible per-record)
-                    import json as _json
-
-                    out_f.write(_json.dumps(
-                        {"testcase": dirname, "format": fmt,
-                         "sweep_incomplete": "1", "child_rc": rc}) + "\n")
-            os.remove(tmp)
-        rc_total |= rc
+            if tmp and os.path.exists(tmp):
+                with open(args.out, "a") as out_f, open(tmp) as part:
+                    out_f.write(part.read())
+                    if rc not in (0, 1):
+                        # the child crashed: mark the group so no reader
+                        # mistakes a truncated group for a complete one
+                        out_f.write(json.dumps(
+                            {"testcase": dirname, "format": fmt,
+                             "sweep_incomplete": "1", "child_rc": rc}) + "\n")
+                os.remove(tmp)
+            rc_total |= rc
     return rc_total
 
 
@@ -118,23 +91,13 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None)
     p.add_argument("--fresh", action="store_true",
                    help="truncate --out instead of appending: regenerate "
-                        "the artifact in one generation (VERDICT r3 #2 — "
-                        "an appended-to JSONL accumulates stale duplicate "
-                        "groups from older registries)")
-    p.add_argument("--retries", type=int, default=2,
-                   help="per-(dir, format) retry budget on device faults "
-                        "(RESOURCE_EXHAUSTED / UNAVAILABLE): probe-wait "
-                        "for the TPU and re-run the group, so one fault "
-                        "doesn't zero a whole group")
+                        "the artifact in one generation (an appended-to "
+                        "JSONL accumulates stale duplicate groups from "
+                        "older registries)")
     p.add_argument("--isolate", action="store_true",
-                   help="run each data dir in its own subprocess.  A "
-                        "device OOM POISONS the JAX client (every later "
-                        "call in the process fails even after the chip "
-                        "recovers — observed on large_20000 in rounds 3 "
-                        "AND 4), so in-process retry cannot help; a fresh "
-                        "process per dir both contains the fault and "
-                        "prevents cross-dir HBM accumulation.  The parent "
-                        "never touches the backend.")
+                   help="run each (data dir, format) group in its own "
+                        "subprocess, so a device-memory fault is contained "
+                        "to its group; the parent never imports JAX")
     args = p.parse_args(argv)
 
     dirs = (args.dirs.split(",") if args.dirs
@@ -155,23 +118,7 @@ def main(argv=None) -> int:
     out_stream = (open(args.out, "w" if args.fresh else "a")
                   if args.out else sys.stdout)
 
-    def _group_faulted(records):
-        """True when the group died on a device fault (retryable) rather
-        than a numerics miss (deterministic).  The vendor baseline is
-        excluded: it runs LAST, so a vendor-only fault truncates nothing
-        — and its remote-compile HTTP 500 on huge shapes is persistent
-        (large_20000/bsr failed 3 group-level retries at ~19 min each,
-        round 4b, for a fault only the vendor record carried)."""
-        return any((r.get("device_fault") == "1"
-                    or ("error" in r and any(
-                        s in r["error"] for s in
-                        ("RESOURCE_EXHAUSTED", "UNAVAILABLE", "INTERNAL"))))
-                   and r.get("kernelType") != "-1"
-                   for r in records)
-
     failures = 0
-    faulted_groups = 0
-    verified_only_misses = 0
     try:
         for dirname in dirs:
             data_dir = os.path.join(args.data_root, dirname)
@@ -193,61 +140,26 @@ def main(argv=None) -> int:
                     continue
                 print(f"# {dirname} {fmt}: A {a.shape} nnz={a.nnz} N={b.shape[1]}",
                       file=sys.stderr)
-                for attempt in range(args.retries + 1):
-                    try:
-                        records = run_engine(
-                            get_engine(fmt), a, b, testcase=dirname,
-                            config=config, skip_seq=args.skip_seq,
-                            run_vendor=not args.no_vendor,
-                            repeats=args.repeats, emit=False,
-                        )
-                    except Exception as e:
-                        # group-level fault (e.g. the initial B transfer
-                        # OOMs before any variant runs) — synthesize a
-                        # fault record; the run must outlive the group
-                        records = [report_mod.make_record(
-                            testcase=dirname, sparsity=a.sparsity, fmt=fmt,
-                            kernel_type="", nnz=a.nnz, shape=a.shape,
-                            n=int(np.shape(b)[1]),
-                            extra={"error": f"{type(e).__name__}: {e}",
-                                   "device_fault": "1"})]
-                    if not _group_faulted(records) or attempt == args.retries:
-                        if _group_faulted(records):
-                            # the group is shipping with a fault after the
-                            # last attempt — reflect it in the exit code so
-                            # an --isolate parent (whose children run with
-                            # --retries 0) knows to re-spawn the group in a
-                            # fresh process.  Round-4's small_210 csr/coo
-                            # groups shipped 2-record stubs precisely
-                            # because a faulted child exited rc=0 here.
-                            faulted_groups += 1
-                        break
-                    print(f"# {dirname} {fmt}: device fault — waiting for "
-                          f"the TPU and retrying "
-                          f"({attempt + 1}/{args.retries})", file=sys.stderr)
-                    from bench.await_tpu import await_tpu
-
-                    await_tpu(budget_s=600)
+                records = run_engine(
+                    get_engine(fmt), a, b, testcase=dirname,
+                    config=config, skip_seq=args.skip_seq,
+                    run_vendor=not args.no_vendor,
+                    repeats=args.repeats, emit=False,
+                )
                 for rec in records:
-                    # operand provenance (VERDICT r4 weak #5): bCols and
-                    # bDtype come from make_record/run_engine; the sweep
-                    # adds where B came from and what --width asked for
+                    # operand provenance: bCols and bDtype come from
+                    # make_record/run_engine; the sweep adds where B came
+                    # from and what --width asked for
                     rec["bSource"] = getattr(dense, "b_source", "ondisk")
                     if args.width is not None:
                         rec["widthArg"] = args.width
                     report_mod.emit(rec, out_stream)
-                    if rec.get("correct") == "0":
-                        if rec.get("verifiedOnly") == "1":
-                            # expected on hostile value scales: documents
-                            # where the 2-term-split variant is admissible
-                            verified_only_misses += 1
-                        else:
-                            failures += 1
+                    if rec.get("correct") == "0" or "error" in rec:
+                        failures += 1
                 del a, records
             # drop the dir's containers (device plan arrays are cached on
-            # them) before the next dir — a 12-dir sweep otherwise
-            # accumulates plans in HBM until something RESOURCE_EXHAUSTs
-            # (the round-3 large_20000 group died exactly this way)
+            # them) before the next dir, so plans do not accumulate in
+            # device memory across a whole-corpus sweep
             del b, dense
             import gc
 
@@ -255,19 +167,9 @@ def main(argv=None) -> int:
     finally:
         if args.out:
             out_stream.close()
-    print(f"# sweep done, {failures} incorrect records, "
-          f"{faulted_groups} groups still faulted "
-          f"({verified_only_misses} verified-only variants correctly "
-          f"reported inadmissible)", file=sys.stderr)
-    # rc 1 = numerics failures (deterministic); rc 2 = device-faulted
-    # group survived the in-process retries (an --isolate parent retries
-    # rc 2 in a fresh process).  The fault signal takes priority when a
-    # run carries BOTH: rc 1 would make the --isolate parent neither
-    # re-spawn the group nor write its sweep_incomplete marker, shipping
-    # a fault-truncated group unmarked — the exact hole the rc-2 path
-    # exists to close.  Re-spawning replays the deterministic misses, but
-    # each attempt's part file is written fresh, so no duplicates ship.
-    return 2 if faulted_groups else (1 if failures else 0)
+    print(f"# sweep done, {failures} incorrect or errored records",
+          file=sys.stderr)
+    return 1 if failures else 0
 
 
 if __name__ == "__main__":

@@ -1,26 +1,23 @@
-"""Summarize a jax.profiler trace into occupancy numbers.
+"""Summarize a jax.profiler trace into device occupancy numbers.
 
-VERDICT r4 #6: the headline's compute-floor argument rests on arithmetic
-(~13.5 GFLOP at ~50% MXU utilization); a profiler capture of the served
-kernel converts the estimate into measurement — MXU-busy vs DMA-wait
-tells whether further work should target fill (MXU-bound) or scheduling
-(DMA gaps).  The reference planned Nsight-Compute profiling but shipped
-no artifacts (SURVEY.md §5); this is the TPU equivalent, consuming the
+A profiler capture of a served kernel turns arithmetic estimates into
+measurement: which operations take the device's time, and how much of
+the window the device is idle.  The reference planned Nsight-Compute
+profiling but shipped no artifacts (SURVEY.md §5); this reads the
 Chrome-trace JSON that ``jax.profiler.start_trace`` writes.
 
 Usage::
 
     python -m tpuspmm.cli --csr -d data/large_25605 --width 256 \
-        --kernel 8 --trace /tmp/panel_trace    # 8 = pallas_panel_split
-    python -m bench.trace_report /tmp/panel_trace \
-        [--out results/trace_report.json]
+        --kernel 3 --trace chiprun_out/trace    # 3 = triton_blocksparse
+    python -m bench.trace_report chiprun_out/trace \
+        [--out chiprun_out/trace_report.json]
 
-Output: one JSON object — per-device-track busy time and fraction over
-the densest 'serving window' (the span covering repeated kernel
-executions, excluding compile), plus the top ops by total duration.
-Degrades gracefully (ok=false + reason) when the backend emits no
-device track — remote/tunneled PJRT plugins may not support device
-profiling.
+Output: one JSON object — per-track busy time and busy fraction (the
+union of the track's event intervals over its span, so overlapping or
+nested events are not counted twice) for the GPU's ``/device:GPU:N``
+tracks, plus the top device ops by total duration.  ok=false with a
+reason when the trace holds no device track.
 """
 
 from __future__ import annotations
@@ -46,6 +43,25 @@ def load_events(path: str):
     return data.get("traceEvents", data if isinstance(data, list) else [])
 
 
+def _is_device(name: str) -> bool:
+    return "/device:gpu:" in name.lower()
+
+
+def union_us(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
 def summarize(events):
     pids, tids = {}, {}
     for e in events:
@@ -54,7 +70,7 @@ def summarize(events):
                 pids[e["pid"]] = e["args"].get("name", str(e["pid"]))
             elif e.get("name") == "thread_name":
                 tids[(e["pid"], e.get("tid"))] = e["args"].get("name", "")
-    tracks = collections.defaultdict(lambda: {"busy_us": 0.0, "events": 0,
+    tracks = collections.defaultdict(lambda: {"intervals": [], "events": 0,
                                               "t0": float("inf"),
                                               "t1": 0.0})
     ops = collections.Counter()
@@ -66,24 +82,22 @@ def summarize(events):
         tname = tids.get((e["pid"], e.get("tid")), "")
         key = f"{pname}/{tname}" if tname else pname
         t = tracks[key]
-        t["busy_us"] += e["dur"]
+        t["intervals"].append((e["ts"], e["ts"] + e["dur"]))
         t["events"] += 1
         t["t0"] = min(t["t0"], e["ts"])
         t["t1"] = max(t["t1"], e["ts"] + e["dur"])
         # device op names live on device-process tracks
-        if any(s in pname.lower() for s in ("tpu", "device", "/device")):
+        if _is_device(pname):
             ops[e.get("name", "?")] += e["dur"]
             op_calls[e.get("name", "?")] += 1
     out = {}
     for key, t in tracks.items():
         span = max(t["t1"] - t["t0"], 1e-9)
-        out[key] = {"busy_ms": round(t["busy_us"] / 1e3, 4),
-                    "span_ms": round(span / 1e3, 4),
-                    "busy_frac": round(t["busy_us"] / span, 4),
-                    "events": t["events"]}
-    top = [{"op": name, "total_ms": round(us / 1e3, 4),
-            "calls": op_calls[name],
-            "mean_us": round(us / max(op_calls[name], 1), 2)}
+        busy = union_us(t["intervals"])
+        out[key] = {"busy_ms": busy / 1e3, "span_ms": span / 1e3,
+                    "busy_frac": busy / span, "events": t["events"]}
+    top = [{"op": name, "total_ms": us / 1e3, "calls": op_calls[name],
+            "mean_us": us / max(op_calls[name], 1)}
            for name, us in ops.most_common(15)]
     return out, top
 
@@ -97,15 +111,10 @@ def main(argv=None) -> int:
     path = find_trace_json(args.trace_dir)
     if path is None:
         rec = {"ok": False,
-               "reason": f"no *.trace.json.gz under {args.trace_dir} "
-                         "(backend emitted no profile — remote PJRT "
-                         "plugins may not support device tracing)"}
+               "reason": f"no *.trace.json.gz under {args.trace_dir}"}
     else:
         tracks, top = summarize(load_events(path))
-        device_tracks = {k: v for k, v in tracks.items()
-                         if any(s in k.lower()
-                                for s in ("tpu", "/device", "xla ops",
-                                          "xla modules", "steps"))}
+        device_tracks = {k: v for k, v in tracks.items() if _is_device(k)}
         rec = {"ok": bool(device_tracks), "trace": path,
                "device_tracks": device_tracks, "top_ops": top}
         if not device_tracks:

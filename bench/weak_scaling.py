@@ -5,14 +5,13 @@ efficiency): the base matrix is replicated k× along its rows per device —
 problem size grows with the mesh, so perfect scaling keeps time constant
 and efficiency(n) = t(1) / t(n).
 
-On this machine only one TPU chip is attached, so multi-device runs use
-virtual CPU devices (--platform cpu, the same mechanism as the test
-suite); on a real pod slice the identical code scales over ICI.
+Runs on the host's GPUs, or on virtual CPU devices with --platform cpu
+(the same mechanism as the test suite) to rehearse the schedules.
 
 Usage::
 
-    python -m bench.weak_scaling [--platform cpu] [--devices 1,2,4,8]
-        [--base-dir /root/reference/data/large_25605] [--width 256]
+    python -m bench.weak_scaling [--platform cpu] [--devices 1,2,4]
+        [--base-dir data/large_25605] [--width 256]
 """
 
 from __future__ import annotations
@@ -36,17 +35,16 @@ def replicate_rows(a, k: int):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--platform", default=None, choices=[None, "cpu", "tpu"],
+    p.add_argument("--platform", default=None, choices=[None, "cpu"],
                    help="cpu → virtual multi-device mesh")
-    p.add_argument("--devices", default="1,2,4,8")
+    p.add_argument("--devices", default="1,2,4")
     from tpuspmm.data import data_dir as _dd
     p.add_argument("--base-dir", default=_dd("large_25605"))
     p.add_argument("--width", type=int, default=256)
     p.add_argument("--repeats", type=int, default=5)
     p.add_argument("--schedule", default="row_sharded", choices=["row_sharded", "ring"])
-    p.add_argument("--local", default="xla",
-                   choices=["xla", "tile", "panel", "pair"],
-                   help="per-chip kernel for the row-sharded schedule")
+    p.add_argument("--local", default="xla", choices=["xla", "blocksparse"],
+                   help="per-device compute of the schedule")
     args = p.parse_args(argv)
 
     counts = [int(x) for x in args.devices.split(",")]
@@ -60,12 +58,13 @@ def main(argv=None) -> int:
 
     from tpuspmm.formats import convert
     from tpuspmm.parallel import make_mesh, spmm_row_sharded, spmm_ring
-    from tpuspmm.parallel.shard import bucket_triplets, shard_rows_tileplan
-    from tpuspmm.utils.timing import time_fn
+    from tpuspmm.config import describe_device, enable_compile_cache
+    from tpuspmm.utils.timing import time_ms
 
-    ndev = len(jax.devices())
-    counts = [c for c in counts if c <= ndev]
-    print(f"# platform={jax.default_backend()} devices={ndev}", file=sys.stderr)
+    enable_compile_cache()
+    dev = describe_device()
+    counts = [c for c in counts if c <= dev["count"]]
+    print(f"# {dev}", file=sys.stderr)
 
     base = convert.load_sparse(args.base_dir, "csr")
     b = np.asarray(convert.load_dense(args.base_dir, width=args.width).data,
@@ -76,35 +75,23 @@ def main(argv=None) -> int:
     for n in counts:
         a = replicate_rows(base, n) if n > 1 else base
         mesh = make_mesh((n,), ("rows",))
-        # prebuild the host-side partition outside the timing loop — the
-        # steady state being measured is device execution, not replanning
-        if args.schedule == "ring":
-            buckets = bucket_triplets(a, n, n)
-            fn = lambda: spmm_ring(a, b, mesh, buckets=buckets)
-        elif args.local in ("panel", "pair"):
-            # plan=None: the auto-supertile path picks an sm that passes
-            # VMEM admission and caches the shard plan on the container
-            # (a prebuilt single-supertile plan crashes the admission
-            # check at small device counts — advisor finding r2); the
-            # warmup call absorbs the one-time plan build
-            fn = lambda: spmm_row_sharded(a, b, mesh, local=args.local)
-        else:
-            plan = shard_rows_tileplan(a, n)
-            fn = lambda: spmm_row_sharded(a, b, mesh, local=args.local,
-                                          plan=plan)
-        ms, _ = time_fn(fn, warmup=1, repeats=args.repeats)
+        # plans are cached on the container, so the warm-up call absorbs
+        # the one-time host partitioning
+        schedule = spmm_ring if args.schedule == "ring" else spmm_row_sharded
+        fn = lambda: schedule(a, b, mesh, local=args.local)
+        ms, _ = time_ms(fn, warmup=1, repeats=args.repeats)
         nnz_per_s = a.nnz / (ms / 1e3)
         if t1 is None:
             t1 = ms
         eff = t1 / ms
-        results.append({"devices": n, "nnz": a.nnz, "ms": round(ms, 3),
-                        "nnz_per_s": round(nnz_per_s, 1),
-                        "efficiency": round(eff, 4)})
+        results.append({"devices": n, "nnz": a.nnz, "ms": ms,
+                        "nnz_per_s": nnz_per_s, "efficiency": eff})
         print(f"# n={n}: {ms:.2f} ms, {nnz_per_s/1e6:.1f} Mnnz/s, "
               f"eff={eff*100:.1f}%", file=sys.stderr)
 
-    print(json.dumps({"schedule": args.schedule, "width": args.width,
-                      "platform": jax.default_backend(), "scaling": results}))
+    print(json.dumps({"schedule": args.schedule, "local": args.local,
+                      "width": args.width, "device": dev,
+                      "scaling": results}))
     return 0
 
 

@@ -7,23 +7,23 @@ through every schedule on an n-device mesh and prints what each one
 communicates:
 
 - ``row``    — A row-sharded, B replicated: zero collectives; the
-               weak-scaling workhorse when B fits every chip.
+               weak-scaling workhorse when B fits every device.
 - ``2d``     — A row-sharded, B column-sharded: still collective-free,
-               per-chip HBM drops by the mesh area.
-- ``ring``   — B K-sharded, panels ppermuted around the ICI ring while
-               each chip multiplies the bucket matching the panel it
-               holds: no chip ever stores all of B, communication
-               ((n-1)/n of B) overlapped with compute — the BASELINE
-               north star.
+               per-device memory drops by the mesh area.
+- ``ring``   — B K-sharded, panels ppermuted around the ring while
+               each device multiplies the bucket matching the panel it
+               holds: no device ever stores all of B, communication
+               ((n-1)/n of B) overlapped with compute.
 - ``kshard`` — A column-sharded, full-height partials psum_scattered:
                one reduce-scatter of C, complementary to the ring.
 
-Every schedule serves any of the four local kernels (xla / tile /
-panel / pair); the flagship ``panel`` local is the default here.
+Every schedule serves either local compute: ``xla`` (gather +
+segment-sum, the default) or ``blocksparse`` (the Triton kernel; on a
+GPU, or interpreted with ``--interpret``).
 
-Run (8 virtual CPU devices unless on a real slice)::
+Run on the host's GPUs, or on virtual CPU devices::
 
-    python examples/distributed_serving.py [--devices 8] [--local panel]
+    python examples/distributed_serving.py [--devices 4] [--local xla]
 """
 
 from __future__ import annotations
@@ -41,18 +41,22 @@ import numpy as np
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--devices", type=int, default=8)
+    p.add_argument("--devices", type=int, default=4)
     p.add_argument("--m", type=int, default=512)
     p.add_argument("--k", type=int, default=1024)
     p.add_argument("--width", type=int, default=128)
     p.add_argument("--density", type=float, default=0.05)
-    p.add_argument("--local", default="panel",
-                   choices=["xla", "tile", "panel", "pair"])
+    p.add_argument("--local", default="xla", choices=["xla", "blocksparse"])
+    p.add_argument("--interpret", action="store_true",
+                   help="run the blocksparse local interpreted (no GPU)")
     args = p.parse_args(argv)
 
     import jax
 
-    if jax.default_backend() == "cpu" and len(jax.devices()) < args.devices:
+    from tpuspmm.config import enable_compile_cache
+
+    enable_compile_cache()
+    if len(jax.devices()) < args.devices:
         print(f"note: {len(jax.devices())} devices visible; set "
               "jax_num_cpu_devices before backend init (tests/conftest.py "
               "does) for a larger virtual mesh", file=sys.stderr)
@@ -75,18 +79,17 @@ def main(argv=None) -> int:
     rows_dim, cols_dim = (n // 2, 2) if n % 2 == 0 and n >= 4 else (n, 1)
     mesh2d = make_mesh((rows_dim, cols_dim))
 
-    interp = None if args.local == "xla" else True \
-        if jax.default_backend() == "cpu" else None
+    interp = True if args.interpret else None
     runs = [
-        ("row", f"B replicated ({b_mb:.1f} MB/chip), no collectives",
+        ("row", f"B replicated ({b_mb:.1f} MB/device), no collectives",
          lambda: spmm_row_sharded(a, b, mesh1d, local=args.local,
                                   interpret=interp)),
-        ("2d", f"B column-sharded ({b_mb / cols_dim:.1f} MB/chip), "
+        ("2d", f"B column-sharded ({b_mb / cols_dim:.1f} MB/device), "
                "no collectives",
          lambda: spmm_2d(a, b, mesh2d, local=args.local,
                          interpret=interp)),
-        ("ring", f"B K-sharded ({b_mb / n:.1f} MB/chip), "
-                 f"{(n - 1) / n * b_mb:.1f} MB ppermuted per chip, "
+        ("ring", f"B K-sharded ({b_mb / n:.1f} MB/device), "
+                 f"{(n - 1) / n * b_mb:.1f} MB ppermuted per device, "
                  "overlapped",
          lambda: spmm_ring(a, b, mesh1d, local=args.local,
                            interpret=interp)),
@@ -100,7 +103,7 @@ def main(argv=None) -> int:
         out = np.asarray(fn())
         good = allclose(out, ref, 1e-2, 1e-3)
         ok &= good
-        print(f"{name:7s} local={args.local:5s} correct={good}   {note}")
+        print(f"{name:7s} local={args.local:11s} correct={good}   {note}")
     return 0 if ok else 1
 
 

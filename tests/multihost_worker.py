@@ -2,8 +2,8 @@
 
 Each process initializes jax.distributed against a shared coordinator,
 sees the global (all-process) device set, and runs the row-sharded and
-ring SpMM schedules over a pod mesh — the actual multi-host code path a
-TPU pod uses, exercised with CPU devices across OS processes.
+ring SpMM schedules over the global mesh — the multi-process code path,
+exercised with CPU devices across OS processes.
 
 Invoked as:  python tests/multihost_worker.py <process_id> <num_processes> <port>
 """
@@ -17,24 +17,26 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 4)
 
 pid, nprocs, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-jax.distributed.initialize(coordinator_address=f"localhost:{port}",
-                           num_processes=nprocs, process_id=pid)
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ["TPUSPMM_INTERPRET"] = "1"
+
+from tpuspmm.parallel import multihost  # noqa: E402
+
+assert multihost.initialize(f"localhost:{port}", num_processes=nprocs,
+                            process_id=pid)
 
 import numpy as np
 from jax.experimental import multihost_utils
 
 from tpuspmm.formats import CSR
 from tpuspmm.ops import oracle
-from tpuspmm.parallel import multihost, spmm_ring, spmm_row_sharded
+from tpuspmm.parallel import spmm_ring, spmm_row_sharded
 from tpuspmm.utils.compare import allclose
 
 info = multihost.process_info()
 assert info["process_count"] == nprocs, info
 assert info["global_devices"] == 4 * nprocs, info
-mesh = multihost.pod_mesh(("rows",))
+mesh = multihost.global_mesh(("rows",))
 
 a = CSR.random(160, 240, 0.06, seed=3)
 b = np.random.default_rng(0).standard_normal((240, 32)).astype(np.float32)

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 
 from tpuspmm.formats import CSR, convert
 from tpuspmm.ops import oracle, xla
-from tpuspmm.kernels import cres_spmm, tile_spmm, csr_vmem
+from tpuspmm.kernels import blocksparse_gpu
 from tpuspmm.utils.compare import allclose
 
 
@@ -35,14 +35,11 @@ def case():
 
 def test_bf16_ingestion_pallas_kernels(case):
     a, b16, ref = case
-    for name, fn in [
-        ("tile", lambda: tile_spmm.spmm_tile_sparse(a, b16, interpret=True)),
-        ("cres", lambda: cres_spmm.spmm_cres(a, b16, interpret=True)),
-        ("staged", lambda: csr_vmem.spmm_staged(a, b16, interpret=True)),
-    ]:
-        out = np.asarray(fn())
-        assert out.dtype == np.float32, name  # f32 accumulation/output
-        assert allclose(out, ref, 1e-2, 1e-3), name
+    for bm, bk in ((16, 16), (64, 64)):
+        out = np.asarray(blocksparse_gpu.spmm_blocksparse(
+            a, b16, interpret=True, bm=bm, bk=bk))
+        assert out.dtype == np.float32  # f32 accumulation/output
+        assert allclose(out, ref, 1e-2, 1e-3), (bm, bk)
 
 
 def test_bf16_ingestion_xla_paths(case):
@@ -93,17 +90,15 @@ def test_astype_round_trip_bf16_values():
                                np.asarray(a.values), rtol=4e-3)
 
 
-def test_bf16_ingestion_panel_pair(case):
-    """The flagship panel/pair kernels accept bf16-ingested B and stay
-    gate-exact vs the f64 oracle of the bf16 operand (the pruned-LLM
-    serving mode measured as bf16_serving_ms in bench.py)."""
-    from tpuspmm.kernels import panel_spmm, pair_spmm
+def test_bf16_ingestion_densify_and_vendor(case):
+    """The cached densify (cuBLAS) and the vendor route accept a
+    bf16-ingested B and stay gate-exact vs the f64 oracle of the bf16
+    operand."""
+    from tpuspmm.ops import vendor
 
     a, b16, ref = case
-    for name, fn in [
-        ("panel", lambda: panel_spmm.spmm_panel(a, b16, interpret=True)),
-        ("pair", lambda: pair_spmm.spmm_pair(a, b16, interpret=True)),
-    ]:
+    for name, fn in [("densify", lambda: xla.spmm_densify_cached(a, b16)),
+                     ("vendor", lambda: vendor.spmm_vendor(a, b16))]:
         out = np.asarray(fn())
         assert out.dtype == np.float32, name
         assert allclose(out, ref, 1e-2, 1e-3), name
@@ -116,23 +111,17 @@ def _count_dots(fn, *args):
     return str(jaxpr).count("dot_general")
 
 
-def test_panel_matmul_pass_ladder():
-    """panel_matmul picks the cheapest MXU-pass ladder for the operand
-    dtypes: bf16 plan x bf16 B is ONE exact pass (the bf16-serving win
-    bench.py measures), bf16 plan x f32 B is 3 passes gate-exact at
-    'highest' and 2 at the verified-only tier, f32 x f32 'highest' is a
-    single HIGHEST dot."""
-    from tpuspmm.kernels.panel_spmm import panel_matmul
+def test_split_dot_pass_ladder():
+    """The kernel's precision ladder issues the fewest bf16 dots that keep
+    f32 accuracy for the operand dtypes: bf16 x bf16 is one exact dot,
+    one f32 side three, f32 x f32 six."""
+    from tpuspmm.kernels.blocksparse_gpu import _split_dot
 
-    a16 = jnp.zeros((32, 128), jnp.bfloat16)
-    a32 = jnp.zeros((32, 128), jnp.float32)
-    b16 = jnp.zeros((128, 64), jnp.bfloat16)
-    b32 = jnp.zeros((128, 64), jnp.float32)
-    # (a dtype, b dtype, internal mode) -> expected dot_general count
-    assert _count_dots(lambda x, y: panel_matmul(x, y, "highest"), a16, b16) == 1
-    assert _count_dots(lambda x, y: panel_matmul(x, y, "split"), a16, b16) == 1
-    assert _count_dots(lambda x, y: panel_matmul(x, y, "highest"), a16, b32) == 3
-    assert _count_dots(lambda x, y: panel_matmul(x, y, "split"), a16, b32) == 2
-    assert _count_dots(lambda x, y: panel_matmul(x, y, "highest"), a32, b16) == 3
-    assert _count_dots(lambda x, y: panel_matmul(x, y, "split"), a32, b16) == 2
-    assert _count_dots(lambda x, y: panel_matmul(x, y, "highest"), a32, b32) == 1
+    a16 = jnp.zeros((32, 64), jnp.bfloat16)
+    a32 = jnp.zeros((32, 64), jnp.float32)
+    b16 = jnp.zeros((64, 32), jnp.bfloat16)
+    b32 = jnp.zeros((64, 32), jnp.float32)
+    assert _count_dots(_split_dot, a16, b16) == 1
+    assert _count_dots(_split_dot, a16, b32) == 3
+    assert _count_dots(_split_dot, a32, b16) == 3
+    assert _count_dots(_split_dot, a32, b32) == 6

@@ -1,10 +1,10 @@
 """Compensated-accumulation SpMM: the deterministic gate for
-extreme-|value| matrices (VERDICT r2 #7; reference f64-accumulator
+extreme-|value| matrices (the reference's f64-accumulator
 guarantee, reference/src/main.cu:185).
 
 The corpus's medium_2880 (g7jac010, |values| ~ 1e7) has one output
 element on the gate boundary: any plain-f32 strategy passes or misses by
-operand luck (BENCHMARKS.md "boundary case").  These tests pin the
+operand luck (medium_2880's "boundary case").  These tests pin the
 Dekker/TwoSum path as deterministic."""
 
 import numpy as np
@@ -96,7 +96,7 @@ def test_dispatch_routes_extreme_matrices_to_exact():
 
     a, b = _extreme_cancelling_problem(seed=11)
     ref = oracle.spmm_oracle(a, b)
-    out = np.asarray(dispatch.spmm_pallas(a, b))
+    out = np.asarray(dispatch.spmm_auto(a, b))
     assert allclose(out, ref, 1e-2, 1e-3)
     np.testing.assert_array_equal(out, np.asarray(exact.spmm_exact(a, b)))
 
@@ -160,7 +160,7 @@ def test_exact_admissible_blocks_pathological_skew():
 
     rng = np.random.default_rng(3)
     b = rng.standard_normal((k, 32)).astype(np.float32)
-    out = np.asarray(dispatch.spmm_pallas(a, b))
+    out = np.asarray(dispatch.spmm_auto(a, b))
     ref = oracle.spmm_scipy_oracle(a, b)
     # products here don't cancel, so the plain-f32 fallback stays in-gate
     assert allclose(out, ref, 1e-2, 1e-3)

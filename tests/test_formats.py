@@ -223,4 +223,4 @@ class TestCSC:
         b = np.random.default_rng(1).standard_normal((90, 16)).astype(np.float32)
         ref = oracle.spmm_oracle(a_csr, b)
         assert allclose(np.asarray(tpuspmm.spmm(a, b, method="xla")), ref, 1e-2, 1e-3)
-        assert allclose(np.asarray(dispatch.spmm_pallas(a, b, interpret=True)), ref, 1e-2, 1e-3)
+        assert allclose(np.asarray(dispatch.spmm_auto(a, b)), ref, 1e-2, 1e-3)

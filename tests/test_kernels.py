@@ -9,7 +9,7 @@ import pytest
 import scipy.sparse
 
 from tpuspmm.config import Config
-from tpuspmm.formats import CSR, COO, BSR, ELL, convert
+from tpuspmm.formats import CSR, COO, convert
 from tpuspmm.engine.registry import get_engine, FORMATS
 from tpuspmm.ops import oracle
 from tpuspmm.utils.compare import allclose
@@ -46,12 +46,7 @@ def test_all_variants_match_oracle(fmt, case):
 
     engine = get_engine(fmt)
     for variant in engine.variants:
-        if variant.admissible is not None and not variant.admissible(a, b, CFG):
-            continue
-        if variant.verified_only:
-            # not numerically guaranteed for every matrix (2-term splits);
-            # test_autotune_excludes_gate_failing_variants covers the
-            # contract that only verified serving paths may pick these
+        if variant.inadmissible_reason(a, b, CFG):
             continue
         out = np.asarray(variant.fn(a, b, CFG))
         assert allclose(out, ref, CFG.rel_tol, CFG.abs_tol), (
@@ -71,47 +66,6 @@ def test_vendor_matches_oracle(fmt):
 
     out = np.asarray(vendor.spmm_vendor(a, b))
     assert allclose(out, ref, CFG.rel_tol, CFG.abs_tol)
-
-
-def test_bsr_stream_mxu_blocks():
-    """Real MXU-shaped blocks through the block-streaming kernel."""
-    from tpuspmm.kernels.bsr_spmm import spmm_bsr_stream
-
-    a = BSR.random_blocks(128, 512, (8, 128), 0.4, seed=9)
-    rng = np.random.default_rng(3)
-    b = rng.uniform(-1, 1, (512, 200)).astype(np.float32)
-    ref = oracle.spmm_bsr_oracle(a, b)
-    out = np.asarray(spmm_bsr_stream(a, b, interpret=True))
-    assert allclose(out, ref, CFG.rel_tol, CFG.abs_tol)
-
-
-def test_bsr_stream_empty_block_rows():
-    """Block rows with zero stored blocks must produce zero output rows."""
-    from tpuspmm.kernels.bsr_spmm import spmm_bsr_stream
-
-    a = BSR.random_blocks(256, 256, (8, 128), 0.15, seed=11)
-    counts = np.diff(a.indptr)
-    assert (counts == 0).any(), "fixture should include an empty block row"
-    rng = np.random.default_rng(4)
-    b = rng.uniform(-1, 1, (256, 128)).astype(np.float32)
-    ref = oracle.spmm_bsr_oracle(a, b)
-    out = np.asarray(spmm_bsr_stream(a, b, interpret=True))
-    assert allclose(out, ref, CFG.rel_tol, CFG.abs_tol)
-
-
-def test_tile_kernel_empty_rows_zero_filled():
-    """Row tiles without nonzeros must come back zero, not garbage."""
-    from tpuspmm.kernels.tile_spmm import spmm_tile_sparse
-
-    dense = np.zeros((300, 200), dtype=np.float32)
-    dense[5, 7] = 2.0  # single nnz → most row tiles empty
-    a = CSR.from_dense(dense)
-    rng = np.random.default_rng(5)
-    b = rng.uniform(-1, 1, (200, 64)).astype(np.float32)
-    out = np.asarray(spmm_tile_sparse(a, b, interpret=True))
-    ref = dense @ b
-    assert allclose(out, ref, CFG.rel_tol, CFG.abs_tol)
-    assert np.all(out[6:] == 0)
 
 
 def test_coo_duplicates_through_kernels():
@@ -171,53 +125,17 @@ def test_spmm_batched_folds_batch_into_lanes():
         spmm_batched(a, rng.uniform(-1, 1, (4, 81, 16)).astype(np.float32))
 
 
-class TestCResidentKernel:
-    """C-resident k-major kernel (tpuspmm/kernels/cres_spmm.py)."""
-
-    def test_matches_oracle(self, rng):
-        from tpuspmm.formats import CSR
-        from tpuspmm.kernels.cres_spmm import spmm_cres
-        from tpuspmm.ops import oracle
-        from tpuspmm.utils.compare import allclose
-
-        a = CSR.random(200, 1500, 0.03, seed=7)
-        b = rng.standard_normal((1500, 72)).astype(np.float32)
-        out = np.asarray(spmm_cres(a, b, interpret=True))
-        assert allclose(out, oracle.spmm_oracle(a, b), 1e-2, 1e-3)
-
-    def test_duplicate_accumulation(self):
-        from tpuspmm.formats import COO
-        from tpuspmm.kernels.cres_spmm import spmm_cres
-        from tpuspmm.utils.compare import allclose
-
-        # duplicate coordinates must accumulate (COO semantics)
-        a = COO(rows=np.array([0, 0, 1], np.int32), cols=np.array([2, 2, 0], np.int32),
-                values=np.array([1.5, 2.5, 3.0], np.float32), shape=(4, 4))
-        b = np.eye(4, dtype=np.float32)
-        out = np.asarray(spmm_cres(a, b, interpret=True))
-        assert allclose(out, a.to_dense() @ b, 1e-6, 1e-6)
-
-    def test_admission_rejects_big_output(self):
-        from tpuspmm.kernels.cres_spmm import fits_vmem_out
-
-        assert fits_vmem_out(6400, 256, 128)
-        assert not fits_vmem_out(65536, 1024, 128)
-
-
 class TestEdgeCases:
     def test_empty_matrix_all_paths(self):
         """nnz=0 must produce all-zeros through every strategy."""
-        from tpuspmm.formats import CSR
-        from tpuspmm.kernels import dispatch, tile_spmm, cres_spmm
+        from tpuspmm.kernels import blocksparse_gpu, dispatch
         from tpuspmm.ops import xla
-        import scipy.sparse
 
         a = CSR.from_scipy(scipy.sparse.csr_matrix((40, 60), dtype=np.float32))
         b = np.ones((60, 16), np.float32)
         for out in (
-            dispatch.spmm_pallas(a, b, interpret=True),
-            tile_spmm.spmm_tile_sparse(a, b, interpret=True),
-            cres_spmm.spmm_cres(a, b, interpret=True),
+            dispatch.spmm_auto(a, b, CFG),
+            blocksparse_gpu.spmm_blocksparse(a, b, interpret=True),
             xla.spmm_csr_xla(a, b),
         ):
             out = np.asarray(out)
@@ -225,148 +143,39 @@ class TestEdgeCases:
             assert np.all(out == 0.0)
 
     def test_single_nnz(self):
-        from tpuspmm.formats import COO
-        from tpuspmm.kernels import tile_spmm, cres_spmm
+        from tpuspmm.kernels import blocksparse_gpu
 
         a = COO(rows=np.array([3], np.int32), cols=np.array([140], np.int32),
                 values=np.array([2.0], np.float32), shape=(10, 200))
         b = np.arange(200 * 8, dtype=np.float32).reshape(200, 8)
         expect = np.zeros((10, 8), np.float32)
         expect[3] = 2.0 * b[140]
-        for fn in (tile_spmm.spmm_tile_sparse, cres_spmm.spmm_cres):
-            np.testing.assert_allclose(np.asarray(fn(a, b, interpret=True)),
-                                       expect, rtol=1e-6)
+        for out in (blocksparse_gpu.spmm_blocksparse(a, b, interpret=True),
+                    get_engine("coo").variant(1).fn(a, b, CFG)):
+            np.testing.assert_allclose(np.asarray(out), expect, rtol=1e-6)
 
 
-def test_dispatch_panel_vs_pair_by_modelled_cost(monkeypatch):
-    """When both plan-time-densified kernels admit, the heuristic dispatch
-    serves whichever family's geometry search modelled cheaper (same
-    constants/units) — the r3 on-chip ablation showed the preference is
-    matrix-shaped (pair wins medium_4096/large_15120, panel the rest)."""
-    import dataclasses
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_pallas_variant_refuses_to_run_uninterpreted_on_cpu(fmt):
+    """Called directly on the CPU without interpret mode, the Triton
+    kernel raises instead of silently running interpreted."""
+    from tpuspmm.config import Config
 
-    import scipy.sparse
-    from tpuspmm.formats import convert
-    from tpuspmm.kernels import dispatch, panel_spmm, pair_spmm
-    from tpuspmm.ops import oracle
-    from tpuspmm.utils.compare import allclose
-
-    # one occupied strip per (strip-row, k-tile) diagonal: the panel plan
-    # pads every pair's strip list up to P (>=8x stored waste) while the
-    # pair plan stores the exact run — its modelled cost must win
-    m, k = 512, 2048
-    rows = np.arange(0, m, 8, dtype=np.int64).repeat(2)
-    cols = ((rows * 131) % k).astype(np.int64)
-    vals = np.linspace(-3, 3, len(rows)).astype(np.float32)
-    sp = scipy.sparse.coo_matrix((vals, (rows, cols)), shape=(m, k))
-    a = convert.to_format(sp.tocsr(), "csr")
-    b = np.random.default_rng(0).uniform(-1, 1, (k, 32)).astype(np.float32)
-
-    pg = panel_spmm.resolve_panel_geometry(
-        a, 128, plan_bytes_cap=panel_spmm.PLAN_BYTES_CAP,
-        budget_bytes=8 << 20)
-    qg = pair_spmm.resolve_pair_geometry(
-        a, 128, plan_bytes_cap=panel_spmm.PLAN_BYTES_CAP,
-        budget_bytes=8 << 20)
-    assert pg is not None and qg is not None
-    assert pg.cost_us is not None and qg.cost_us is not None
-
-    # pin the comparison's outcome (the real costs are close on this
-    # synthetic — tk search + row reordering compact the panel plan):
-    # with the panel modelled expensive, dispatch must serve the pair
-    orig_resolve = panel_spmm.resolve_panel_geometry
-    monkeypatch.setattr(
-        panel_spmm, "resolve_panel_geometry",
-        lambda *a_, **k_: (lambda g: None if g is None else
-                           g._replace(cost_us=1e9))(orig_resolve(*a_, **k_)))
-    served = []
-    orig = pair_spmm.spmm_pair
-    monkeypatch.setattr(pair_spmm, "spmm_pair",
-                        lambda *a_, **k_: served.append("pair")
-                        or orig(*a_, **k_))
-    out = np.asarray(dispatch.spmm_pallas(a, b, interpret=True))
-    assert served == ["pair"]
-    assert allclose(out, oracle.spmm_scipy_oracle(a, b), 1e-2, 1e-3)
-
-    # and with the pair modelled expensive, the panel serves again
-    monkeypatch.setattr(panel_spmm, "resolve_panel_geometry", orig_resolve)
-    orig_qresolve = pair_spmm.resolve_pair_geometry
-    monkeypatch.setattr(
-        pair_spmm, "resolve_pair_geometry",
-        lambda *a_, **k_: (lambda g: None if g is None else
-                           dataclasses.replace(g, cost_us=1e9))(
-                               orig_qresolve(*a_, **k_)))
-    served.clear()
-    out2 = np.asarray(dispatch.spmm_pallas(a, b, interpret=True))
-    assert served == []
-    assert allclose(out2, oracle.spmm_scipy_oracle(a, b), 1e-2, 1e-3)
+    a = convert.to_format(_rand(30, 40, 0.1, seed=3), fmt)
+    b = np.ones((40, 8), np.float32)
+    v = next(v for v in get_engine(fmt).variants if v.requires_gpu)
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        v.fn(a, b, Config(interpret=False))
 
 
-def test_staged_b_kslab_matches_whole_b():
-    """K-slab staged B (csr_vmem): when whole B exceeds the VMEM budget,
-    the kernel stages (slab_k x n) stripes and accumulates the output
-    block across the minor slab grid dimension.  Slabbed and whole-B
-    results must agree with the oracle and each other, including a
-    bf16-ingested operand and a budget forcing >2 slabs."""
-    from tpuspmm.kernels import csr_vmem
-    from tpuspmm.formats.tiles import plan_from_container
+@pytest.mark.parametrize("method", ["xla", "pallas", "densify", "exact",
+                                    "auto"])
+def test_public_methods_match_oracle(method):
+    """Every public spmm method serves the same product."""
+    import tpuspmm
 
-    rng = np.random.default_rng(5)
-    a = CSR.from_scipy(_rand(300, 511, 0.08, seed=5))
-    b = rng.uniform(-1, 1, (511, 200)).astype(np.float32)
-    ref = oracle.spmm_oracle(a, b)
-
-    plan = plan_from_container(a)
-    k_pad = plan.num_k_tiles * plan.tile_k            # 512
-    n_pad = 256
-    chunk_bytes = plan.num_chunks * plan.chunk * 12
-    whole = csr_vmem.spmm_staged(plan, b, interpret=True,
-                                 budget_bytes=64 * 1024 * 1024)
-    # budget admits one-or-two 128-row stripes but not whole B
-    tight = (2 * plan.tile_m * n_pad * 4 + chunk_bytes
-             + 2 * plan.tile_k * n_pad * 4)
-    assert not csr_vmem.fits_vmem(k_pad, n_pad, plan.tile_m, tight,
-                                  chunk_bytes)
-    assert csr_vmem.max_slab_k(k_pad, n_pad, plan.tile_m, plan.tile_k,
-                               tight, chunk_bytes) >= plan.tile_k
-    slabbed = csr_vmem.spmm_staged(plan, b, interpret=True,
-                                   budget_bytes=tight)
-    assert allclose(np.asarray(whole), ref, 1e-2, 1e-3)
-    assert allclose(np.asarray(slabbed), ref, 1e-2, 1e-3)
-    # slabbed accumulation reassociates the per-k-tile partial sums
-    # (per-slab f32 adds into the output block), so bit-equality with
-    # the whole-B order is not expected — hold them to the gate tolerance
-    assert allclose(np.asarray(slabbed), np.asarray(whole), 1e-3, 1e-4)
-
-    # bf16-ingested operand through the slab path
-    import ml_dtypes
-
-    b16 = b.astype(ml_dtypes.bfloat16)
-    ref16 = oracle.spmm_oracle(a, np.asarray(b16).astype(np.float64))
-    out16 = csr_vmem.spmm_staged(plan, b16, interpret=True,
-                                 budget_bytes=tight)
-    assert allclose(np.asarray(out16), ref16, 1e-2, 1e-3)
-
-    # and a budget so tight no stripe fits -> explicit inadmissible error
-    with pytest.raises(ValueError):
-        csr_vmem.spmm_staged(plan, b, interpret=True, budget_bytes=1024)
-
-
-def test_staged_b_kslab_widens_engine_admission():
-    """The staged-B variant's admission gate follows the k-slab rule: a
-    matrix whose whole B bursts the budget but whose tile_k stripe fits
-    must be admissible (it was 'inadmissible' on the entire medium corpus
-    under the whole-B rule)."""
-    import dataclasses as dc
-
-    from tpuspmm.engine.registry import get_engine
-
-    a = CSR.from_scipy(_rand(256, 2048, 0.02, seed=9))
-    b = np.zeros((2048, 512), np.float32)
-    # whole B = 2048*512*4 = 4 MiB; budget 2 MiB: stripe = 128*512*4 = 256 KiB
-    cfg = dc.replace(CFG, vmem_budget_bytes=2 * 1024 * 1024)
-    v = [v for v in get_engine("csr").variants
-         if v.name == "pallas_staged_b"][0]
-    assert v.admissible(a, b, cfg)
-    out = v.fn(a, b, cfg)
-    assert allclose(np.asarray(out), oracle.spmm_oracle(a, b), 1e-2, 1e-3)
+    sp = _rand(70, 90, 0.08, seed=31)
+    a = CSR.from_scipy(sp)
+    b = np.random.default_rng(8).uniform(-1, 1, (90, 24)).astype(np.float32)
+    out = np.asarray(tpuspmm.spmm(a, b, method=method))
+    assert allclose(out, sp.toarray() @ b, CFG.rel_tol, CFG.abs_tol)

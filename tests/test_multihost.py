@@ -2,8 +2,8 @@
 
 Spawns two OS processes that form a jax.distributed cluster (2 hosts × 4
 CPU devices = 8 global devices) and run the sharded SpMM schedules across
-the process boundary — the code path a real TPU pod slice takes, which the
-in-process 8-device tests cannot cover.
+the process boundary — the multi-process code path, which the in-process
+8-device tests cannot cover.
 """
 
 import os

@@ -20,8 +20,6 @@ from tpuspmm.native import fastio
 
 from tpuspmm.data import data_dir
 
-REF_DATA = "/root/reference/data"
-
 
 @pytest.fixture(scope="module", autouse=True)
 def _built():

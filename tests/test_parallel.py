@@ -32,79 +32,6 @@ def problem(rng=None):
     return a, b, ref
 
 
-def test_row_sharded_tile(problem):
-    a, b, ref = problem
-    mesh = make_mesh((8,), ("rows",))
-    out = np.asarray(spmm_row_sharded(a, b, mesh, local="tile"))
-    assert out.shape == ref.shape
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_row_sharded_panel(problem):
-    a, b, ref = problem
-    mesh = make_mesh((8,), ("rows",))
-    out = np.asarray(spmm_row_sharded(a, b, mesh, local="panel"))
-    assert out.shape == ref.shape
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_row_sharded_panel_supertiled(problem):
-    # force a per-shard supertile split: sm < m_local
-    a, b, ref = problem
-    from tpuspmm.parallel.shard import shard_rows_panelplan
-
-    plan = shard_rows_panelplan(a, 4, sm=16)
-    assert plan.n_supertiles > 1
-    mesh = make_mesh((4,), ("rows",))
-    out = np.asarray(spmm_row_sharded(a, b, mesh, local="panel", plan=plan))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_row_sharded_panel_bf16_plan(problem):
-    # ±1 values → per-shard plans compact to bf16 losslessly; the stacked
-    # plan must shard and serve through shard_map unchanged
-    import ml_dtypes
-
-    from tpuspmm.formats import COO
-    from tpuspmm.parallel.shard import shard_rows_panelplan
-
-    rng = np.random.default_rng(21)
-    m, k, per_row = 300, 420, 5
-    rows = np.repeat(np.arange(m, dtype=np.int32), per_row)
-    cols = rng.integers(0, k, m * per_row).astype(np.int32)
-    vals = rng.choice([-1.0, 1.0], m * per_row).astype(np.float32)
-    a = COO(shape=(m, k), rows=rows, cols=cols, values=vals)
-    b = rng.standard_normal((k, 96)).astype(np.float32)
-    ref = oracle.spmm_oracle(a, b)
-    plan = shard_rows_panelplan(a, 8)
-    assert plan.a_dense.dtype == ml_dtypes.bfloat16
-    mesh = make_mesh((8,), ("rows",))
-    out = np.asarray(spmm_row_sharded(a, b, mesh, local="panel", plan=plan))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_row_sharded_pair(problem):
-    a, b, ref = problem
-    mesh = make_mesh((8,), ("rows",))
-    out = np.asarray(spmm_row_sharded(a, b, mesh, local="pair"))
-    assert out.shape == ref.shape
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_row_sharded_pair_supertiled_uneven_shards(problem):
-    # sm < m_local forces per-shard supertiling; 3 shards over 300 rows
-    # makes the last slab ragged, so per-shard pair/strip counts differ
-    # and the uniform-padding path is exercised
-    a, b, ref = problem
-    from tpuspmm.parallel.shard import shard_rows_pairplan
-
-    plan = shard_rows_pairplan(a, 3, sm=48, chunk_strips=8)
-    assert plan.n_supertiles > 1
-    mesh = make_mesh((3,), ("rows",))
-    out = np.asarray(spmm_row_sharded(a, b, mesh, local="pair", plan=plan))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
 def test_row_sharded_xla(problem):
     a, b, ref = problem
     mesh = make_mesh((4,), ("rows",))
@@ -131,257 +58,12 @@ def test_ring_uneven_shapes():
     assert allclose(out, ref, 1e-2, 1e-3)
 
 
-def test_ring_tile_local(problem):
-    """VERDICT r2 #4: the ring schedule's device-local compute must be
-    servable by the Pallas tile kernel (per-bucket tile plans selected by
-    dynamic ring index), not only the XLA segment-sum."""
-    a, b, ref = problem
-    mesh = make_mesh((8,), ("rows",))
-    out = np.asarray(spmm_ring(a, b, mesh, local="tile"))
-    assert out.shape == ref.shape
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_ring_tile_local_uneven_buckets():
-    """Uneven-bucket correctness (VERDICT r2 #4 done-criterion): ragged
-    M/K, a nearly-empty bucket (all nnz concentrated in low K), and a
-    ragged last row shard."""
-    rng = np.random.default_rng(13)
-    m, k = 97, 205
-    # concentrate 90% of nnz in K < 64 so buckets differ wildly in size
-    n1, n2 = 360, 40
-    rows = np.concatenate([rng.integers(0, m, n1), rng.integers(0, m, n2)])
-    cols = np.concatenate([rng.integers(0, 64, n1), rng.integers(64, k, n2)])
-    vals = rng.standard_normal(n1 + n2).astype(np.float32)
-    from tpuspmm.formats import COO
-
-    a = COO(shape=(m, k), rows=rows.astype(np.int32),
-            cols=cols.astype(np.int32), values=vals)
-    b = rng.standard_normal((k, 40)).astype(np.float32)
-    ref = oracle.spmm_oracle(a, b)
-    mesh = make_mesh((4,), ("rows",))
-    out = np.asarray(spmm_ring(a, b, mesh, local="tile"))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_ring_tile_local_cols_axis(problem):
-    a, b, ref = problem
-    mesh = make_mesh((4, 2), ("rows", "cols"))
-    out = np.asarray(spmm_ring(a, b, mesh, cols_axis="cols", local="tile"))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_ring_pair_local(problem):
-    """VERDICT r3 #7: the flagship pair kernel as the ring schedule's
-    local compute — per-(shard, bucket) strip runs jnp.taken by ring
-    step, ppermute overlapped."""
-    a, b, ref = problem
-    mesh = make_mesh((8,), ("rows",))
-    out = np.asarray(spmm_ring(a, b, mesh, local="pair"))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_ring_pair_local_uneven_buckets():
-    """VERDICT r3 #7 done-criterion: pair-local ring on ragged M/K with
-    wildly uneven bucket occupancy (90% of nnz in low K — some buckets
-    nearly empty, so the uniform chunk/strip padding machinery and the
-    count=0 filler DMAs are all exercised)."""
-    rng = np.random.default_rng(13)
-    m, k = 97, 205
-    n1, n2 = 360, 40
-    rows = np.concatenate([rng.integers(0, m, n1), rng.integers(0, m, n2)])
-    cols = np.concatenate([rng.integers(0, 64, n1), rng.integers(64, k, n2)])
-    vals = rng.standard_normal(n1 + n2).astype(np.float32)
-    from tpuspmm.formats import COO
-
-    a = COO(shape=(m, k), rows=rows.astype(np.int32),
-            cols=cols.astype(np.int32), values=vals)
-    b = rng.standard_normal((k, 40)).astype(np.float32)
-    ref = oracle.spmm_oracle(a, b)
-    mesh = make_mesh((4,), ("rows",))
-    out = np.asarray(spmm_ring(a, b, mesh, local="pair"))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_ring_pair_local_cols_axis(problem):
-    a, b, ref = problem
-    mesh = make_mesh((4, 2), ("rows", "cols"))
-    out = np.asarray(spmm_ring(a, b, mesh, cols_axis="cols", local="pair"))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_kshard_pair_local(problem):
-    from tpuspmm.parallel import spmm_kshard
-
-    a, b, ref = problem
-    mesh = make_mesh((8,), ("rows",))
-    out = np.asarray(spmm_kshard(a, b, mesh, local="pair"))
-    assert out.shape == ref.shape
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_kshard_pair_local_uneven():
-    from tpuspmm.parallel import spmm_kshard
-
-    rng = np.random.default_rng(17)
-    a = CSR.random(130, 333, 0.07, seed=9)
-    b = rng.standard_normal((333, 72)).astype(np.float32)
-    ref = oracle.spmm_oracle(a, b)
-    mesh = make_mesh((4,), ("rows",))
-    out = np.asarray(spmm_kshard(a, b, mesh, local="pair"))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_ring_panel_local(problem):
-    """VERDICT r4 #4: the flagship panel kernel as the ring schedule's
-    local compute — per-(shard, bucket) plan-time-densified panels
-    jnp.taken by ring step, ppermute overlapped."""
-    a, b, ref = problem
-    mesh = make_mesh((8,), ("rows",))
-    out = np.asarray(spmm_ring(a, b, mesh, local="panel"))
-    assert out.shape == ref.shape
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_ring_panel_local_uneven_buckets():
-    """Panel-local ring on ragged M/K with wildly uneven bucket
-    occupancy (90% of nnz in low K — some buckets nearly empty, so the
-    uniform panel-count padding and the trash-panel convention are all
-    exercised)."""
-    rng = np.random.default_rng(13)
-    m, k = 97, 205
-    n1, n2 = 360, 40
-    rows = np.concatenate([rng.integers(0, m, n1), rng.integers(0, m, n2)])
-    cols = np.concatenate([rng.integers(0, 64, n1), rng.integers(64, k, n2)])
-    vals = rng.standard_normal(n1 + n2).astype(np.float32)
-    from tpuspmm.formats import COO
-
-    a = COO(shape=(m, k), rows=rows.astype(np.int32),
-            cols=cols.astype(np.int32), values=vals)
-    b = rng.standard_normal((k, 40)).astype(np.float32)
-    ref = oracle.spmm_oracle(a, b)
-    mesh = make_mesh((4,), ("rows",))
-    out = np.asarray(spmm_ring(a, b, mesh, local="panel"))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_ring_panel_local_cols_axis(problem):
-    a, b, ref = problem
-    mesh = make_mesh((4, 2), ("rows", "cols"))
-    out = np.asarray(spmm_ring(a, b, mesh, cols_axis="cols", local="panel"))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_ring_panel_local_supertiled():
-    """Explicit sm < m_local: every bucket's plan supertiles, the ring
-    body's un-supertile reshape runs, and trash panels pinned to the
-    LAST supertile must not re-fire the slab zero-init."""
-    from tpuspmm.parallel.shard import bucket_panelplans
-
-    rng = np.random.default_rng(23)
-    a = CSR.random(128, 256, 0.06, seed=19)
-    b = rng.standard_normal((256, 40)).astype(np.float32)
-    ref = oracle.spmm_oracle(a, b)
-    mesh = make_mesh((2,), ("rows",))
-    plans = bucket_panelplans(a, 2, 2, sm=32)
-    assert plans.n_supertiles > 1
-    out = np.asarray(spmm_ring(a, b, mesh, local="panel", plans=plans))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_kshard_panel_local(problem):
-    from tpuspmm.parallel import spmm_kshard
-
-    a, b, ref = problem
-    mesh = make_mesh((8,), ("rows",))
-    out = np.asarray(spmm_kshard(a, b, mesh, local="panel"))
-    assert out.shape == ref.shape
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_kshard_panel_local_uneven():
-    from tpuspmm.parallel import spmm_kshard
-
-    rng = np.random.default_rng(17)
-    a = CSR.random(130, 333, 0.07, seed=9)
-    b = rng.standard_normal((333, 72)).astype(np.float32)
-    ref = oracle.spmm_oracle(a, b)
-    mesh = make_mesh((4,), ("rows",))
-    out = np.asarray(spmm_kshard(a, b, mesh, local="panel"))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_kshard_panel_local_supertiled():
-    """Explicit sm < m_local: the full-height partial is supertiled, the
-    un-supertile reshape runs inside the psum_scatter callable."""
-    from tpuspmm.parallel import spmm_kshard
-    from tpuspmm.parallel.shard import bucket_panelplans
-
-    rng = np.random.default_rng(5)
-    a = CSR.random(264, 520, 0.06, seed=11)
-    b = rng.standard_normal((520, 96)).astype(np.float32)
-    ref = oracle.spmm_oracle(a, b)
-    mesh = make_mesh((4,), ("rows",))
-    plans = bucket_panelplans(a, 1, 4, sm=64, m_align=4)
-    assert plans.n_supertiles > 1
-    out = np.asarray(spmm_kshard(a, b, mesh, local="panel", plans=plans))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_kshard_tile_local(problem):
-    from tpuspmm.parallel import spmm_kshard
-
-    a, b, ref = problem
-    mesh = make_mesh((8,), ("rows",))
-    out = np.asarray(spmm_kshard(a, b, mesh, local="tile"))
-    assert out.shape == ref.shape
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_kshard_tile_local_uneven():
-    from tpuspmm.parallel import spmm_kshard
-
-    rng = np.random.default_rng(17)
-    a = CSR.random(130, 333, 0.07, seed=9)
-    b = rng.standard_normal((333, 72)).astype(np.float32)
-    ref = oracle.spmm_oracle(a, b)
-    mesh = make_mesh((4,), ("rows",))
-    out = np.asarray(spmm_kshard(a, b, mesh, local="tile"))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
 def test_2d_mesh(problem):
     a, b, ref = problem
     mesh = make_mesh((4, 2))
     out = np.asarray(spmm_2d(a, b, mesh))
     assert out.shape == ref.shape
     assert allclose(out, ref, 1e-2, 1e-3)
-
-
-@pytest.mark.parametrize("local", ["panel", "pair"])
-def test_2d_mesh_panel_pair_locals(problem, local):
-    """2-D schedule serving the flagship panel/pair kernels per (row,
-    col) shard: each shard densifies its row slab against its
-    n_local-wide B column shard; an uneven width exercises the column
-    padding, and a bf16-ingested operand the serving dtype."""
-    import ml_dtypes
-
-    a, b, ref = problem
-    mesh = make_mesh((4, 2))
-    out = np.asarray(spmm_2d(a, b, mesh, local=local))
-    assert out.shape == ref.shape
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-    # uneven width (96 → n_local 128 with padding on the last shard)
-    b_odd = b[:, :72]
-    out_odd = np.asarray(spmm_2d(a, b_odd, mesh, local=local))
-    assert allclose(out_odd, ref[:, :72], 1e-2, 1e-3)
-
-    b16 = b.astype(ml_dtypes.bfloat16)
-    ref16 = oracle.spmm_oracle(a, np.asarray(b16).astype(np.float64))
-    out16 = np.asarray(spmm_2d(a, b16, mesh, local=local))
-    assert out16.dtype == np.float32
-    assert allclose(out16, ref16, 1e-2, 1e-3)
 
 
 def test_weak_scaling_consistency(problem):
@@ -438,9 +120,10 @@ def test_multihost_single_process_degrades():
     info = multihost.process_info()
     assert info["process_count"] == 1
     assert info["global_devices"] == 8
-    mesh = multihost.pod_mesh(("rows",))
+    assert multihost.initialize() is False  # no coordinator: nothing to join
+    mesh = multihost.global_mesh(("rows",))
     assert mesh.shape["rows"] == 8
-    mesh2 = multihost.pod_mesh(("rows", "cols"), shape=(4, 2))
+    mesh2 = multihost.global_mesh(("rows", "cols"), shape=(4, 2))
     assert mesh2.shape == {"rows": 4, "cols": 2}
 
 
@@ -474,8 +157,7 @@ def test_kshard_uneven():
 
 
 def test_ring_2d_cols_axis(problem):
-    """Ring over "rows" with B/C column-sharded over "cols" — the
-    ICI-aligned 2-D layout."""
+    """Ring over "rows" with B/C column-sharded over "cols"."""
     from tpuspmm.parallel import spmm_ring
 
     a, b, ref = problem
@@ -498,62 +180,10 @@ def test_2d_mesh_wide_b_not_multiple_of_tile():
     assert allclose(out, ref, 1e-2, 1e-3)
 
 
-def test_row_sharded_pair_empty_supertile_and_uneven_strips():
-    # shard 0: nnz only in its FIRST supertile (second empty → filler
-    # chunk, re-aimed at the uniform zero tail); shard 1: dense enough
-    # that shard 0's strips need padding to the uniform count
-    from tpuspmm.formats import COO
-    from tpuspmm.parallel.shard import shard_rows_pairplan
-
-    rng = np.random.default_rng(11)
-    m, k = 128, 256
-    # shard 0 = rows 0..63: two nnz in rows 0..31 only
-    r0 = np.array([3, 17], np.int32)
-    c0 = np.array([5, 200], np.int32)
-    # shard 1 = rows 64..127: every row occupied
-    r1 = np.arange(64, 128, dtype=np.int32)
-    c1 = rng.integers(0, k, 64).astype(np.int32)
-    rows = np.concatenate([r0, r1])
-    cols = np.concatenate([c0, c1])
-    vals = rng.uniform(-5, 5, rows.size).astype(np.float32)
-    a = COO(shape=(m, k), rows=rows, cols=cols, values=vals)
-    b = rng.uniform(-1, 1, (k, 40)).astype(np.float32)
-    ref = oracle.spmm_oracle(a, b)
-
-    plan = shard_rows_pairplan(a, 2, sm=32, chunk_strips=8)
-    assert plan.n_supertiles == 2
-    # shard 0 stored fewer strips than the uniform count (padding hit)
-    n_half = plan.chunks_per_shard
-    assert (plan.c_count[:n_half] == 0).any()  # filler chunk present
-    mesh = make_mesh((2,), ("rows",))
-    out = np.asarray(spmm_row_sharded(a, b, mesh, local="pair", plan=plan))
-    assert allclose(out, ref, 1e-2, 1e-3)
-
-
-def test_ring_and_kshard_reject_buckets_with_tile_local():
-    """Prebuilt triplet buckets cannot parameterize the tile-local
-    schedules (they take tile plans via plans=); passing them must raise,
-    not silently rebuild a different plan (review r3)."""
-    from tpuspmm.parallel.shard import bucket_triplets
-
-    a = CSR.random(64, 64, 0.05, seed=7)
-    b = np.random.default_rng(8).standard_normal((64, 32)).astype(np.float32)
-    mesh = make_mesh((8,), ("rows",))
-    n_dev = mesh.shape["rows"]
-    with pytest.raises(ValueError, match="plans="):
-        spmm_ring(a, b, mesh, buckets=bucket_triplets(a, n_dev, n_dev),
-                  local="tile")
-    with pytest.raises(ValueError, match="plans="):
-        __import__("tpuspmm.parallel", fromlist=["spmm_kshard"]).spmm_kshard(
-            a, b, mesh, buckets=bucket_triplets(a, 1, n_dev),
-                    local="tile")
-
-
 def test_sharded_schedules_bf16_ingested_operand(problem):
     """bf16-ingested B (--b-dtype bf16 serving mode) through every
-    communicating schedule: the shard-local kernels ingest bf16 directly
-    (single exact MXU pass), output stays f32, and the gate checks vs
-    the f64 oracle OF the bf16 values."""
+    communicating schedule: output stays f32, and the gate checks vs the
+    f64 oracle OF the bf16 values."""
     import ml_dtypes
 
     from tpuspmm.parallel import spmm_kshard
@@ -566,9 +196,134 @@ def test_sharded_schedules_bf16_ingested_operand(problem):
         out = np.asarray(fn(a, b16, mesh))
         assert out.dtype == np.float32, fn.__name__
         assert allclose(out, ref16, 1e-2, 1e-3), fn.__name__
-    # and the flagship panel/pair kernels as the communicating schedules'
-    # locals (VERDICT r3 #7 pair, r4 #4 panel)
+    # and the block-sparse kernel as the communicating schedules' local
     for fn in (spmm_kshard, spmm_ring):
-        for loc in ("pair", "panel"):
-            out = np.asarray(fn(a, b16, mesh, local=loc))
-            assert allclose(out, ref16, 1e-2, 1e-3), f"{fn.__name__} {loc}"
+        out = np.asarray(fn(a, b16, mesh, local="blocksparse"))
+        assert allclose(out, ref16, 1e-2, 1e-3), fn.__name__
+
+
+# ---------------------------------------------------------------------------
+# the block-sparse local compute (Triton kernel, interpreted here)
+# ---------------------------------------------------------------------------
+
+def _skewed():
+    """Ragged M/K with wildly uneven bucket occupancy: 90% of nnz in
+    K < 64, so some buckets are nearly empty and the uniform-padding of
+    the stacked plans is exercised."""
+    from tpuspmm.formats import COO
+
+    rng = np.random.default_rng(13)
+    m, k = 97, 205
+    n1, n2 = 360, 40
+    rows = np.concatenate([rng.integers(0, m, n1), rng.integers(0, m, n2)])
+    cols = np.concatenate([rng.integers(0, 64, n1), rng.integers(64, k, n2)])
+    vals = rng.standard_normal(n1 + n2).astype(np.float32)
+    a = COO(shape=(m, k), rows=rows.astype(np.int32),
+            cols=cols.astype(np.int32), values=vals)
+    b = rng.standard_normal((k, 40)).astype(np.float32)
+    return a, b, oracle.spmm_oracle(a, b)
+
+
+SCHEDULES = {
+    "row": lambda a, b, **kw: spmm_row_sharded(a, b, make_mesh((4,), ("rows",)), **kw),
+    "2d": lambda a, b, **kw: spmm_2d(a, b, make_mesh((2, 2)), **kw),
+    "ring": lambda a, b, **kw: spmm_ring(a, b, make_mesh((4,), ("rows",)), **kw),
+    "ring_cols": lambda a, b, **kw: spmm_ring(a, b, make_mesh((2, 2)),
+                                              cols_axis="cols", **kw),
+    "kshard": lambda a, b, **kw: __import__(
+        "tpuspmm.parallel", fromlist=["spmm_kshard"]).spmm_kshard(
+            a, b, make_mesh((4,), ("rows",)), **kw),
+}
+
+
+@pytest.mark.parametrize("case", ["even", "skewed"])
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+def test_blocksparse_local(problem, schedule, case):
+    """Every schedule serves the block-sparse kernel as its local
+    compute, on the even problem and on ragged, skewed buckets."""
+    a, b, ref = problem if case == "even" else _skewed()
+    out = np.asarray(SCHEDULES[schedule](a, b, local="blocksparse",
+                                         interpret=True))
+    assert out.shape == ref.shape
+    assert allclose(out, ref, 1e-2, 1e-3)
+
+
+@pytest.mark.parametrize("schedule", ["row", "2d", "ring", "kshard"])
+def test_unknown_local_raises(problem, schedule):
+    a, b, _ = problem
+    with pytest.raises(ValueError, match="local must be one of"):
+        SCHEDULES[schedule](a, b, local="tile")
+
+
+def test_default_local_is_xla(problem, monkeypatch):
+    """Without a local argument no schedule reaches the Pallas kernel."""
+    from tpuspmm.kernels import blocksparse_gpu
+
+    def no_kernel(*a_, **k_):
+        raise AssertionError("the default local must not call the kernel")
+
+    monkeypatch.setattr(blocksparse_gpu, "blocksparse_call", no_kernel)
+    a, b, ref = problem
+    for name, fn in SCHEDULES.items():
+        assert allclose(np.asarray(fn(a, b)), ref, 1e-2, 1e-3), name
+
+
+def test_blocksparse_local_bf16_plans():
+    """±1 values: every shard's plan stores bf16 tiles losslessly and the
+    stack shards and serves unchanged; one f32 shard makes the stack f32."""
+    import ml_dtypes
+
+    from tpuspmm.formats import COO
+    from tpuspmm.parallel.shard import bucket_blockplans
+
+    rng = np.random.default_rng(21)
+    m, k, per_row = 300, 420, 5
+    rows = np.repeat(np.arange(m, dtype=np.int32), per_row)
+    cols = rng.integers(0, k, m * per_row).astype(np.int32)
+    vals = rng.choice([-1.0, 1.0], m * per_row).astype(np.float32)
+    a = COO(shape=(m, k), rows=rows, cols=cols, values=vals)
+    b = rng.standard_normal((k, 96)).astype(np.float32)
+    plans = bucket_blockplans(a, 8, 1)
+    assert plans.tiles.dtype == ml_dtypes.bfloat16
+    out = np.asarray(spmm_row_sharded(a, b, make_mesh((8,), ("rows",)),
+                                      local="blocksparse", plan=plans,
+                                      interpret=True))
+    assert allclose(out, oracle.spmm_oracle(a, b), 1e-2, 1e-3)
+    vals2 = vals.copy()
+    vals2[0] = 0.1  # not bf16-exact, in shard 0 only
+    a2 = COO(shape=(m, k), rows=rows, cols=cols, values=vals2)
+    assert bucket_blockplans(a2, 8, 1).tiles.dtype == np.float32
+
+
+def test_stacked_blockplans_shapes():
+    """Stacked plans: one row_ptr per local problem over the same row
+    blocks, tiles padded to a common count that no run reaches."""
+    from tpuspmm.parallel.shard import bucket_blockplans
+
+    a, _, _ = _skewed()
+    plans = bucket_blockplans(a, 2, 3, m_align=4)
+    assert plans.row_ptr.shape[:2] == (2, 3)
+    assert plans.m_local % 4 == 0 and plans.m_local % plans.bm == 0
+    n_tiles = plans.kt.shape[2]
+    assert plans.tiles.shape == (2, 3, n_tiles * plans.bm, plans.bk)
+    assert np.all(plans.row_ptr[..., -1] <= n_tiles)
+    assert plans.k_local * 3 >= a.shape[1]
+
+
+def test_ring_and_kshard_reject_mismatched_prebuilt_plans(problem):
+    """Triplet buckets parameterize the xla local and block plans the
+    blocksparse local; passing the other kind raises instead of silently
+    rebuilding a different plan."""
+    from tpuspmm.parallel import spmm_kshard
+    from tpuspmm.parallel.shard import bucket_blockplans, bucket_triplets
+
+    a, b, _ = problem
+    mesh = make_mesh((8,), ("rows",))
+    with pytest.raises(ValueError, match="plans="):
+        spmm_ring(a, b, mesh, buckets=bucket_triplets(a, 8, 8),
+                  local="blocksparse")
+    with pytest.raises(ValueError, match="plans="):
+        spmm_kshard(a, b, mesh, buckets=bucket_triplets(a, 1, 8),
+                    local="blocksparse")
+    with pytest.raises(ValueError, match="buckets="):
+        spmm_ring(a, b, mesh, plans=bucket_blockplans(a, 8, 8))

@@ -113,55 +113,9 @@ def test_converted_files_loadable_by_cli_discovery(mtx_dir):
     assert found["ell_rowind"] and found["ell_values"] and found["dense"]
 
 
-def test_fit_panel_model_recovers_synthetic_constants():
-    """The nnls fit must recover known constants from synthetic records
-    generated by the same cost model (so the on-chip refit pipeline is
-    trustworthy before it ever sees chip data)."""
-    import numpy as np
-
-    from bench.fit_panel_model import fit
-
-    true = dict(step_us=0.2, gbps=300.0, strip_us=0.02, gather_gbps=400.0)
-    rng = np.random.default_rng(0)
-    records = []
-    for tm in (8, 16, 32):
-        for P in (16, 32, 64):
-            for perm in (False, True):
-                strips = int(rng.integers(500, 20000))
-                steps = max(1, strips // P)
-                sb = tm * 128 * 2
-                m, n = 6300, 256
-                us = (steps * true["step_us"]
-                      + strips * sb / (true["gbps"] * 1e3)
-                      + strips * true["strip_us"]
-                      + (m * n * 8 / (true["gather_gbps"] * 1e3)
-                         if perm else 0.0))
-                records.append({
-                    "mode": "highest", "correct": True, "perm": perm,
-                    "strips": strips, "steps": steps, "strip_bytes": sb,
-                    "m": m, "n": n, "ms": us / 1e3})
-    fitted, rms, used = fit(records)
-    assert used == len(records)
-    assert rms < 1e-6
-    assert fitted["panel_step_us"] == pytest.approx(0.2, rel=1e-3)
-    assert fitted["panel_hbm_gbps"] == pytest.approx(300.0, rel=1e-2)
-    assert fitted["panel_strip_us"] == pytest.approx(0.02, rel=1e-3)
-    assert fitted["panel_gather_gbps"] == pytest.approx(400.0, rel=1e-2)
-
-
-def test_fit_panel_model_rejects_rank_deficient():
-    from bench.fit_panel_model import fit
-
-    recs = [{"mode": "highest", "correct": True, "perm": False,
-             "strips": 100, "steps": 10, "strip_bytes": 2048,
-             "m": 100, "n": 64, "ms": 1.0}] * 6
-    with pytest.raises(ValueError):
-        fit(recs)
-
-
 def test_splice_sweep_replaces_groups(tmp_path):
     """splice_sweep: part-file groups replace their counterparts in the
-    artifact (the transient-fault repair path); other groups survive."""
+    artifact (the re-run repair path); other groups survive."""
     import json
 
     from bench.splice_sweep import splice
@@ -192,7 +146,8 @@ def test_example_pruned_mlp_bf16(monkeypatch):
 
     monkeypatch.setattr(sys, "argv", [
         "pruned_mlp", "--d-model", "64", "--d-ff", "128", "--batch", "32",
-        "--block-sparsity", "0.8", "--activations-dtype", "bf16"])
+        "--block-sparsity", "0.8", "--activations-dtype", "bf16",
+        "--method", "auto"])
     monkeypatch.setenv("TPUSPMM_INTERPRET", "1")
     try:
         runpy.run_path("examples/pruned_mlp.py", run_name="__main__")
@@ -200,34 +155,9 @@ def test_example_pruned_mlp_bf16(monkeypatch):
         assert e.code == 0
 
 
-def test_ablate_fill_small_case(tmp_path):
-    """The fill ablation (VERDICT r4 #4) runs end-to-end on a small
-    matrix: every strategy record carries strips/fill/modelled time, the
-    geometry scan emits, and the natural-order record exists."""
-    import json
-
-    from bench.ablate_fill import main as ablate_main
-
-    out = tmp_path / "fill.jsonl"
-    rc = ablate_main(["--case", "data/small_32x32", "--width", "32",
-                      "--out", str(out)])
-    assert rc == 0
-    recs = [json.loads(l) for l in out.read_text().splitlines()]
-    strategies = {r["strategy"] for r in recs}
-    assert "natural" in strategies and "geometry_scan" in strategies
-    assert any(s.startswith("col:") for s in strategies)
-    nat = next(r for r in recs if r["strategy"] == "natural")
-    assert nat["paddedStrips"] > 0 and 0 < nat["fill"] <= 1
-    assert nat["modelledMs"] >= 0  # rounds to 0.0 on sub-µs tiny cases
-    # column strategies carry the serve-time B-row-gather charge field
-    # (rounds to 0.0 at this tiny K; the headline case charges ~0.17 ms)
-    colrec = next(r for r in recs if r["strategy"].startswith("col:"))
-    assert "bPermChargedMs" in colrec
-
-
 def test_trace_report_parses_chrome_trace(tmp_path):
-    """trace_report summarizes a Chrome-trace JSON (device tracks, top
-    ops) and degrades to ok=false on a host-only trace."""
+    """trace_report summarizes a Chrome-trace JSON (the GPU's device
+    tracks, top ops) and degrades to ok=false on a host-only trace."""
     import gzip
     import json
 
@@ -237,10 +167,10 @@ def test_trace_report_parses_chrome_trace(tmp_path):
     d.mkdir(parents=True)
     events = [
         {"ph": "M", "pid": 1, "name": "process_name",
-         "args": {"name": "/device:TPU:0"}},
+         "args": {"name": "/device:GPU:0"}},
         {"ph": "M", "pid": 1, "tid": 2, "name": "thread_name",
          "args": {"name": "XLA Ops"}},
-        {"ph": "X", "pid": 1, "tid": 2, "name": "fusion.panel", "ts": 0,
+        {"ph": "X", "pid": 1, "tid": 2, "name": "blocksparse_spmm", "ts": 0,
          "dur": 100},
         {"ph": "X", "pid": 1, "tid": 2, "name": "copy.b", "ts": 120,
          "dur": 30},
@@ -252,9 +182,9 @@ def test_trace_report_parses_chrome_trace(tmp_path):
     assert rc == 0
     rec = json.loads(out.read_text())
     assert rec["ok"] and rec["device_tracks"]
-    track = rec["device_tracks"]["/device:TPU:0/XLA Ops"]
-    assert track["busy_ms"] == 0.13
-    assert rec["top_ops"][0]["op"] == "fusion.panel"
+    track = rec["device_tracks"]["/device:GPU:0/XLA Ops"]
+    assert track["busy_ms"] == pytest.approx(0.13)
+    assert rec["top_ops"][0]["op"] == "blocksparse_spmm"
     # host-only trace -> ok=false with a reason
     import shutil
 
@@ -273,7 +203,7 @@ def test_trace_report_parses_chrome_trace(tmp_path):
 
 def test_example_distributed_serving(monkeypatch):
     """The distributed example must stay runnable: all four schedules on
-    the virtual mesh with the flagship panel local."""
+    the virtual mesh with the default (xla) local."""
     import runpy
     import sys
 
@@ -290,16 +220,16 @@ def test_example_distributed_serving(monkeypatch):
 def test_summarize_incomplete_marker_spans_provenance_groups():
     """A sweep_incomplete marker carries no bCols/bDtype; it must flag
     the provenance-keyed groups of its (testcase, format) instead of
-    forming a phantom ("", "") row (review r5)."""
+    forming a phantom ("", "") row."""
     from bench.summarize import summarize
 
     recs = [
         {"testcase": "d", "format": "csr", "bCols": 256, "bDtype": "f32",
-         "kernelType": "1", "correct": "1", "tpuKernelTimeMs": 1.0},
+         "kernelType": "1", "correct": "1", "kernelTimeMs": 1.0},
         {"testcase": "d", "format": "csr", "sweep_incomplete": "1",
          "child_rc": 2},
         {"testcase": "d", "format": "coo", "bCols": 256, "bDtype": "f32",
-         "kernelType": "1", "correct": "1", "tpuKernelTimeMs": 2.0},
+         "kernelType": "1", "correct": "1", "kernelTimeMs": 2.0},
     ]
     rows = summarize(recs)
     by_fmt = {(r["testcase"], r["format"], r["bCols"]): r for r in rows}
@@ -310,3 +240,59 @@ def test_summarize_incomplete_marker_spans_provenance_groups():
     rows2 = summarize([{"testcase": "x", "format": "bsr",
                         "sweep_incomplete": "1", "child_rc": 2}])
     assert len(rows2) == 1 and rows2[0]["incomplete"] == "yes"
+
+
+@pytest.mark.parametrize("intervals,busy", [
+    ([(0, 10), (5, 15)], 15),            # overlap counted once
+    ([(0, 10), (2, 4), (20, 30)], 20),   # nested, then disjoint
+    ([(0, 5), (5, 10)], 10),             # touching
+])
+def test_trace_report_merges_overlapping_intervals(intervals, busy):
+    from bench.trace_report import summarize, union_us
+
+    assert union_us(intervals) == busy
+    events = [{"ph": "M", "pid": 1, "name": "process_name",
+               "args": {"name": "/device:GPU:0"}}]
+    events += [{"ph": "X", "pid": 1, "tid": 1, "name": "op", "ts": s,
+                "dur": e - s} for s, e in intervals]
+    tracks, _ = summarize(events)
+    t = tracks["/device:GPU:0"]
+    span = max(e for _, e in intervals) - min(s for s, _ in intervals)
+    assert t["busy_frac"] == pytest.approx(busy / span)
+
+
+def test_sweep_formats_isolate_parent_stays_off_jax():
+    """--isolate runs each (dir, format) group in a child process and the
+    parent never imports JAX, so the child is the only process on the
+    card."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import subprocess, sys\n"
+            "calls = []\n"
+            "class R: returncode = 0\n"
+            "subprocess.run = lambda c, **k: calls.append(c) or R()\n"
+            "from bench import sweep_formats\n"
+            "rc = sweep_formats.main(['--isolate', '--data-root', 'data', "
+            "'--dirs', 'small_32x32', '--formats', 'csr,coo'])\n"
+            "print(rc, len(calls), 'jax' in sys.modules)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=repo, timeout=300)
+    assert res.stdout.split() == ["0", "2", "False"], res.stderr
+
+
+@pytest.mark.parametrize("script", ["bench.py", "chip_smoke.py"])
+def test_gpu_entry_points_refuse_the_cpu(script):
+    """The headline benchmark and the smoke run exit non-zero and print
+    no result when JAX finds no GPU: nothing falls back to the CPU."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, os.path.join(repo, script)],
+                         capture_output=True, text=True, env=env, cwd=repo,
+                         timeout=300)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout and '"metric"' not in res.stdout

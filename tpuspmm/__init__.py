@@ -1,4 +1,4 @@
-"""tpuspmm — TPU-native sparse linear-algebra framework.
+"""tpuspmm — sparse linear-algebra framework in JAX for NVIDIA GPUs.
 
 A from-scratch JAX/Pallas re-imagining of the capability surface of the CUDA
 reference `mli43/Cuda-Optimization-for-SpMM` (see SURVEY.md): CSR/COO/BSR/ELL

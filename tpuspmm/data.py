@@ -7,8 +7,7 @@ the read-only reference mount instead.  The corpus now ships in the repo
 and every consumer resolves directories through here:
 
 1. ``$TPUSPMM_DATA`` if set,
-2. the repo's own ``data/`` tree,
-3. the reference mount (``/root/reference/data``), if present.
+2. the repo's own ``data/`` tree.
 """
 
 from __future__ import annotations
@@ -18,7 +17,6 @@ from typing import Optional
 
 _REPO_DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data")
-_REFERENCE_DATA = "/root/reference/data"
 
 
 def data_roots() -> list:
@@ -27,7 +25,6 @@ def data_roots() -> list:
     if env:
         roots.append(env)
     roots.append(_REPO_DATA)
-    roots.append(_REFERENCE_DATA)
     return [r for r in roots if os.path.isdir(r)]
 
 

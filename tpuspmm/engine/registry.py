@@ -1,18 +1,16 @@
 """Per-format kernel registries.
 
-TPU-native counterpart of the reference engine hierarchy
+Counterpart of the reference engine hierarchy
 (reference/include/engine/engine_base.hpp:5-10 and the per-format engines,
 engine_csr.hpp:27-91 etc.).  Kernel numbering follows the reference
 convention (reference/src/engine/engine.cpp:16-61):
 
-- ``-1`` — vendor baseline (cuSPARSE there, jax.experimental.sparse here)
+- ``-1`` — vendor baseline (cuSPARSE, through jax.experimental.sparse)
 - ``0``  — sequential oracle (numpy float64)
 - ``1..numKernels`` — optimized variants
 
-Reference variant counts: CSR=4, COO=1, BSR=1, ELL=1 (+1 unreachable)
-(engine_csr.hpp:38, engine_coo.hpp:29, engine_bsr.hpp:29, engine_ell.hpp:32).
-This build keeps ≥ that many variants per format, each a genuinely distinct
-TPU strategy.
+Every format has four: its XLA gather route, the cached densify
+(cuBLAS), the block-sparse Triton kernel and the compensated-f32 route.
 """
 
 from __future__ import annotations
@@ -20,7 +18,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional
 
-import jax.numpy as jnp
 import numpy as np
 
 
@@ -33,12 +30,21 @@ class KernelVariant:
     # admission predicate; mirrors K4's bail-out heuristic
     # (reference/src/spmm/csr/spmm_csr_k4.cu:91-101)
     admissible: Optional[Callable] = None
-    # True for variants whose numerics are not guaranteed for every
-    # (matrix, operand) — e.g. 2-term bf16 splits.  They may only be
-    # served through a path that verifies the result against the oracle
-    # for the specific matrix (engine runner / autotune); heuristic
-    # dispatch must never pick them.
-    verified_only: bool = False
+    # a Pallas GPU kernel: admissible only on a GPU, or interpreted when
+    # the config asks for it (never interpreted silently)
+    requires_gpu: bool = False
+
+    def inadmissible_reason(self, a, b, config) -> str:
+        """Why this variant cannot serve (a, b), or "" when it can."""
+        if self.requires_gpu:
+            from tpuspmm.kernels.blocksparse_gpu import runnable
+
+            if not runnable(config.interpret):
+                return ("Pallas Triton kernel needs a GPU (interpret mode "
+                        "not requested)")
+        if self.admissible is not None and not self.admissible(a, b, config):
+            return "admission predicate refused this operand"
+        return ""
 
 
 @dataclasses.dataclass
@@ -84,26 +90,29 @@ def _csr_xla(a, b, config):
 GATHER_MAX_BYTES = 2 << 30  # 2 GiB intermediate cap for materializing paths
 
 
-def _gather_ok(a, b, config):
-    """Admission for the XLA gather+segment-sum family: the lowering
-    MATERIALIZES the (nnz, n) gathered-B intermediate (ops/xla.py
-    spmm_triplets), which at reference widths can dwarf HBM — e.g.
-    large_20000's on-disk dense operand is 20000 wide, so the
-    intermediate is 137736 x 20000 x 4 B = 11 GB and the OOM poisons the
-    JAX client for every later call in the process (observed rounds 3-4).
-    The reference's CUDA kernels read B in place per element
-    (spmm_csr_k1.cu:28-31) and never hit this; skipping with an
-    'inadmissible' record is the honest equivalent of K4's VMEM bail
-    (spmm_csr_k4.cu:92-101)."""
+def gather_fits(a, n: int) -> bool:
+    """Does the gather route's (count, n) intermediate fit GATHER_MAX_BYTES?"""
     from tpuspmm.kernels.common import round_up
 
-    n_pad = round_up(int(np.shape(b)[1]), 128)
     # ELL flattens ALL padded slots (incl. -1 sentinels) into triplets —
     # the intermediate scales with rowind.size, not nnz, and a
     # column-skewed matrix pads every column to the max count
     count = (int(np.asarray(a.rowind).size)
              if getattr(a, "rowind", None) is not None else a.nnz)
-    return count * n_pad * 4 <= GATHER_MAX_BYTES
+    return count * round_up(n, 128) * 4 <= GATHER_MAX_BYTES
+
+
+def _gather_ok(a, b, config):
+    """Admission for the XLA gather+segment-sum family: the lowering
+    MATERIALIZES the (nnz, n) gathered-B intermediate (ops/xla.py
+    spmm_triplets), which at reference widths can dwarf device memory —
+    e.g. large_20000's on-disk dense operand is 20000 wide, so the
+    intermediate is 137736 x 20000 x 4 B = 11 GB.
+    The reference's CUDA kernels read B in place per element
+    (spmm_csr_k1.cu:28-31) and never hit this; skipping with an
+    'inadmissible' record is the honest equivalent of K4's shared-memory bail
+    (spmm_csr_k4.cu:92-101)."""
+    return gather_fits(a, int(np.shape(b)[1]))
 
 
 def _bsr_gather_ok(a, b, config):
@@ -117,51 +126,6 @@ def _bsr_gather_ok(a, b, config):
     return nblocks * bw * n_pad * 4 <= GATHER_MAX_BYTES
 
 
-def _tile(a, b, config):
-    from tpuspmm.kernels import tile_spmm
-    from tpuspmm.kernels.common import round_up
-
-    # normalize the live cap to a lane-aligned multiple of 128 — a raw cap
-    # like 300 (or <128) would hand Pallas a misaligned BlockSpec
-    cap = max(128, config.tile_n_cap // 128 * 128)
-    tile_n = min(round_up(int(b.shape[1]), 128), cap)
-    return tile_spmm.spmm_tile_sparse(
-        a, b, tile_m=config.tile_m, tile_k=config.tile_k,
-        chunk=config.chunk_nnz, tile_n=tile_n, interpret=config.interpret,
-        mode=config.precision_mode,
-    )
-
-
-def _staged(a, b, config):
-    from tpuspmm.kernels import csr_vmem
-    from tpuspmm.formats.tiles import plan_from_container
-
-    plan = plan_from_container(a, tile_m=config.tile_m, tile_k=config.tile_k,
-                               chunk=config.chunk_nnz)
-    return csr_vmem.spmm_staged(plan, b, interpret=config.interpret,
-                                budget_bytes=config.vmem_budget_bytes,
-                                mode=config.precision_mode)
-
-
-def _staged_ok(a, b, config):
-    from tpuspmm.kernels import csr_vmem
-    from tpuspmm.kernels.common import round_up
-    from tpuspmm.formats.tiles import plan_from_container
-
-    k_pad = round_up(a.shape[1], config.tile_k)
-    n_pad = round_up(b.shape[1], 128)
-    # the real chunk payload must fit alongside one B stripe (plan is
-    # cached, so this costs nothing in steady state) — must match
-    # spmm_staged's own gate: whole B is the fast case, a k-slab stripe
-    # of at least tile_k rows the widened one
-    plan = plan_from_container(a, tile_m=config.tile_m, tile_k=config.tile_k,
-                               chunk=config.chunk_nnz)
-    chunk_bytes = plan.num_chunks * plan.chunk * 12
-    return csr_vmem.max_slab_k(k_pad, n_pad, config.tile_m, config.tile_k,
-                               budget_bytes=config.vmem_budget_bytes,
-                               chunk_bytes=chunk_bytes) >= config.tile_k
-
-
 def _densify_matmul(a, b, config):
     from tpuspmm.ops import xla
 
@@ -170,13 +134,12 @@ def _densify_matmul(a, b, config):
 
 def _densify_ok(a, b, config):
     # The cached densify pays a one-time host scatter + full-dense H2D
-    # transfer and pins the dense operand in HBM for the container's
-    # lifetime, so admission must prevent hyper-sparse LARGE matrices
-    # from paying ~1 GiB of transfer for a variant that cannot win
-    # (review r5).  Small dense operands (≤ the chip's measured densify
-    # routing cap) are always worth measuring; between that and the
-    # 1 GiB hard cap only matrices at/above the measured density floor
-    # qualify.
+    # transfer and pins the dense operand in device memory for the
+    # container's lifetime, so admission keeps hyper-sparse LARGE
+    # matrices from paying ~1 GiB of transfer for a variant that cannot
+    # win.  Dense operands up to the device's densify cap are always
+    # worth measuring; between that and the 1 GiB hard cap only matrices
+    # at or above the density floor qualify.
     from tpuspmm.kernels.dispatch import thresholds
 
     th = thresholds()
@@ -187,97 +150,10 @@ def _densify_ok(a, b, config):
             and a.sparsity >= th["densify_min_density"])
 
 
-def _cres(a, b, config):
-    from tpuspmm.kernels import cres_spmm
-    from tpuspmm.formats.tiles import plan_from_container
+def _blocksparse(a, b, config):
+    from tpuspmm.kernels import blocksparse_gpu
 
-    plan = plan_from_container(a, tile_m=config.tile_m, tile_k=config.tile_k,
-                               chunk=config.chunk_nnz)
-    return cres_spmm.spmm_cres(plan, b, interpret=config.interpret,
-                               budget_bytes=config.vmem_budget_bytes,
-                               mode=config.precision_mode)
-
-
-def _cres_split2(a, b, config):
-    from tpuspmm.kernels import cres_spmm
-    from tpuspmm.formats.tiles import plan_from_container
-
-    plan = plan_from_container(a, tile_m=config.tile_m, tile_k=config.tile_k,
-                               chunk=config.chunk_nnz)
-    return cres_spmm.spmm_cres(plan, b, interpret=config.interpret,
-                               budget_bytes=config.vmem_budget_bytes,
-                               mode="split2")
-
-
-def _cres_ok(a, b, config):
-    from tpuspmm.kernels import cres_spmm
-    from tpuspmm.kernels.common import round_up
-
-    m_pad = round_up(a.shape[0], config.tile_m)
-    n_pad = round_up(b.shape[1], 128)
-    return cres_spmm.fits_vmem_out(m_pad, n_pad, config.tile_k,
-                                   budget_bytes=config.vmem_budget_bytes)
-
-
-def _panel(a, b, config):
-    from tpuspmm.kernels import panel_spmm
-
-    return panel_spmm.spmm_panel(a, b, interpret=config.interpret,
-                                 budget_bytes=config.vmem_budget_bytes,
-                                 panel_strips=config.panel_strips)
-
-
-def _panel_split(a, b, config):
-    from tpuspmm.kernels import panel_spmm
-
-    return panel_spmm.spmm_panel(a, b, interpret=config.interpret,
-                                 budget_bytes=config.vmem_budget_bytes,
-                                 mode="split2",
-                                 panel_strips=config.panel_strips)
-
-
-def _panel_ok(a, b, config):
-    from tpuspmm.kernels import panel_spmm
-    from tpuspmm.kernels.common import round_up
-
-    n_pad = round_up(b.shape[1], 128)
-    # outputs beyond the VMEM budget are row-supertiled (the resolver
-    # shrinks P under tight budgets before giving up), and the stacked
-    # dense plan re-read from HBM every call must stay affordable — the
-    # resolver filters candidates against PLAN_BYTES_CAP using exact
-    # plan-byte accounting WITHOUT densifying anything, so admission is
-    # cheap even for rejected matrices
-    geom = panel_spmm.resolve_panel_geometry(
-        a, n_pad, panel_strips=config.panel_strips,
-        budget_bytes=config.vmem_budget_bytes,
-        plan_bytes_cap=panel_spmm.PLAN_BYTES_CAP)
-    return geom is not None
-
-
-def _pair(a, b, config):
-    from tpuspmm.kernels import pair_spmm
-
-    return pair_spmm.spmm_pair(a, b, interpret=config.interpret,
-                               budget_bytes=config.vmem_budget_bytes)
-
-
-def _pair_split(a, b, config):
-    from tpuspmm.kernels import pair_spmm
-
-    return pair_spmm.spmm_pair(a, b, interpret=config.interpret,
-                               budget_bytes=config.vmem_budget_bytes,
-                               mode="split2")
-
-
-def _pair_ok(a, b, config):
-    from tpuspmm.kernels import pair_spmm
-    from tpuspmm.kernels.common import round_up
-
-    n_pad = round_up(b.shape[1], 128)
-    geom = pair_spmm.resolve_pair_geometry(
-        a, n_pad, budget_bytes=config.vmem_budget_bytes,
-        plan_bytes_cap=pair_spmm.PLAN_BYTES_CAP)
-    return geom is not None
+    return blocksparse_gpu.spmm_blocksparse(a, b, interpret=config.interpret)
 
 
 def _compensated(a, b, config):
@@ -306,17 +182,6 @@ def _bsr_xla(a, b, config):
     return xla.spmm_bsr_xla(a, b)
 
 
-def _bsr_stream(a, b, config):
-    from tpuspmm.kernels import bsr_spmm
-
-    if bsr_spmm.mxu_friendly(a.block_size):
-        return bsr_spmm.spmm_bsr_stream(a, b, interpret=config.interpret)
-    packed = bsr_spmm.pack_blocks(a)
-    if packed is not None:
-        return bsr_spmm.spmm_bsr_stream(packed, b, interpret=config.interpret)
-    return _tile(a, b, config)
-
-
 def _ell_xla(a, b, config):
     from tpuspmm.ops import xla
 
@@ -324,141 +189,54 @@ def _ell_xla(a, b, config):
 
 
 def build_engines() -> Dict[str, Engine]:
+    def blocksparse(number):
+        return KernelVariant(
+            number, "triton_blocksparse", _blocksparse,
+            "plan-time (32×32) tile densification, Pallas/Triton kernel: "
+            "each program walks its row block's tiles, B tile in shared "
+            "memory, partial sums in registers",
+            requires_gpu=True)
+
+    def compensated(number):
+        return KernelVariant(
+            number, "xla_compensated", _compensated,
+            "Dekker/TwoSum compensated f32 accumulation — deterministic "
+            "gate pass for extreme-|value| matrices (≙ the f64 "
+            "accumulator guarantee, main.cu:185)",
+            admissible=_compensated_ok)
+
+    def densify(number):
+        return KernelVariant(
+            number, "xla_densify_matmul", _densify_matmul,
+            "cached densify + one dense cuBLAS matmul (wins the "
+            "high-density sweep)",
+            admissible=_densify_ok)
+
     return {
-        "csr": Engine(
-            fmt="csr",
-            variants=[
-                KernelVariant(1, "xla_segment_sum", _csr_xla,
-                              "gather + row segment-sum on the VPU (≙ K1/K3 row-parallel, spmm_csr_k1.cu:12-34)",
-                              admissible=_gather_ok),
-                KernelVariant(2, "pallas_tile_mxu", _tile,
-                              "nnz-balanced tile chunks, MXU one-hot densify (≙ K2 merge-path, spmm_csr_k2.cu:10-58)"),
-                KernelVariant(3, "pallas_staged_b", _staged,
-                              "B staged in VMEM, whole or k-slabbed (≙ K4 smem staging, spmm_csr_k4.cu:12-79)",
-                              admissible=_staged_ok),
-                KernelVariant(4, "xla_densify_matmul", _densify_matmul,
-                              "on-device densify + one dense MXU matmul (wins the high-density sweep)",
-                              admissible=_densify_ok),
-                KernelVariant(5, "pallas_c_resident", _cres,
-                              "whole output resident in VMEM, k-major B panels fetched once (large-K shapes)",
-                              admissible=_cres_ok),
-                KernelVariant(6, "pallas_c_resident_split2", _cres_split2,
-                              "C-resident with 2-term bf16 splits (4 MXU passes/chunk, ~2^-17 error) — "
-                              "only served when it passes the per-matrix gate (autotune verifies)",
-                              admissible=_cres_ok, verified_only=True),
-                KernelVariant(7, "pallas_panel", _panel,
-                              "plan-time block densification: static A pre-densified into MXU "
-                              "panels, serving = dense panel matmuls (f32 HIGHEST, gate-exact)",
-                              admissible=_panel_ok),
-                KernelVariant(8, "pallas_panel_split", _panel_split,
-                              "panel kernel with 3-pass bf16 split matmuls (~2^-16 error) — "
-                              "only served when it passes the per-matrix gate",
-                              admissible=_panel_ok, verified_only=True),
-                KernelVariant(9, "pallas_pair", _pair,
-                              "run-length panels: one grid step per (supertile, k-tile) pair, "
-                              "in-kernel DMA over exact strip runs (zero plan padding; gate-exact)",
-                              admissible=_pair_ok),
-                KernelVariant(10, "pallas_pair_split", _pair_split,
-                              "pair kernel at the 2-term bf16 split tier (~2^-16 error) — "
-                              "only served when it passes the per-matrix gate",
-                              admissible=_pair_ok, verified_only=True),
-                KernelVariant(11, "xla_compensated", _compensated,
-                              "Dekker/TwoSum compensated f32 accumulation — "
-                              "deterministic gate pass for extreme-|value| "
-                              "matrices (≙ the f64 accumulator guarantee, "
-                              "main.cu:185)",
-                              admissible=_compensated_ok),
-            ],
-        ),
-        "coo": Engine(
-            fmt="coo",
-            variants=[
-                KernelVariant(1, "xla_segment_sum", _coo_xla,
-                              "atomic-free scatter via segment-sum (≙ K5 atomicAdd, spmm_coo_k1.cu:8-27)",
-                              admissible=_gather_ok),
-                KernelVariant(2, "pallas_tile_mxu", _tile,
-                              "tile-sparse MXU kernel over row-sorted triplets"),
-                KernelVariant(3, "pallas_c_resident", _cres,
-                              "C resident in VMEM, k-major panels (large-K shapes)",
-                              admissible=_cres_ok),
-                KernelVariant(4, "pallas_panel", _panel,
-                              "plan-time block densification into MXU panels",
-                              admissible=_panel_ok),
-                KernelVariant(5, "pallas_pair", _pair,
-                              "run-length panels, in-kernel DMA strip runs",
-                              admissible=_pair_ok),
-                KernelVariant(6, "xla_compensated", _compensated,
-                              "compensated f32 accumulation (deterministic "
-                              "gate for extreme values)",
-                              admissible=_compensated_ok),
-                KernelVariant(7, "xla_densify_matmul", _densify_matmul,
-                              "cached densify + one dense MXU matmul "
-                              "(wins the high-density sweep)",
-                              admissible=_densify_ok),
-            ],
-        ),
-        "bsr": Engine(
-            fmt="bsr",
-            variants=[
-                KernelVariant(1, "xla_block_einsum", _bsr_xla,
-                              "gathered-panel batched matmul + block-row segment-sum (≙ K6, spmm_bsr_k1.cu:8-41)",
-                              admissible=_bsr_gather_ok),
-                KernelVariant(2, "pallas_block_stream", _bsr_stream,
-                              "MXU block streaming with VMEM-resident output tile (megablox-style)"),
-                KernelVariant(3, "pallas_tile_mxu", _tile,
-                              "densified tile kernel (small-block fallback)"),
-                KernelVariant(4, "pallas_panel", _panel,
-                              "plan-time re-blocking into MXU panels (any stored block size)",
-                              admissible=_panel_ok),
-                KernelVariant(5, "pallas_pair", _pair,
-                              "run-length panels, in-kernel DMA strip runs",
-                              admissible=_pair_ok),
-                KernelVariant(6, "xla_compensated", _compensated,
-                              "compensated f32 accumulation (deterministic "
-                              "gate for extreme values)",
-                              admissible=_compensated_ok),
-                KernelVariant(7, "xla_densify_matmul", _densify_matmul,
-                              "cached densify + one dense MXU matmul: "
-                              "uniformly-scattered 4x4 pruning is "
-                              "plan-dense past ~5% block density, where "
-                              "the systolic array on the densified "
-                              "operand beats every sparse decomposition",
-                              admissible=_densify_ok),
-            ],
-        ),
-        "ell": Engine(
-            fmt="ell",
-            variants=[
-                KernelVariant(1, "xla_segment_sum", _ell_xla,
-                              "column-slot scatter via segment-sum (≙ K7/K8 atomicAdd scatter, spmm_ell_k1.cu:11-35)",
-                              admissible=_gather_ok),
-                KernelVariant(2, "pallas_tile_mxu", _tile,
-                              "tile-sparse MXU kernel over ELL slots"),
-                KernelVariant(3, "pallas_c_resident", _cres,
-                              "C resident in VMEM, k-major panels (large-K shapes)",
-                              admissible=_cres_ok),
-                KernelVariant(4, "pallas_panel", _panel,
-                              "plan-time block densification into MXU panels",
-                              admissible=_panel_ok),
-                KernelVariant(5, "pallas_pair", _pair,
-                              "run-length panels, in-kernel DMA strip runs",
-                              admissible=_pair_ok),
-                KernelVariant(6, "pallas_staged_b", _staged,
-                              "B staged in VMEM (whole or k-slabbed) over ELL slot chunks "
-                              "(≙ K8 staged-B, spmm_ell_k2.cu:11-54 — the "
-                              "reference registers it at engine_ell.hpp:72-74 "
-                              "though its default loop never reaches it)",
-                              admissible=_staged_ok),
-                KernelVariant(7, "xla_compensated", _compensated,
-                              "compensated f32 accumulation (deterministic "
-                              "gate for extreme values)",
-                              admissible=_compensated_ok),
-                KernelVariant(8, "xla_densify_matmul", _densify_matmul,
-                              "cached densify + one dense MXU matmul "
-                              "(wins the high-density sweep)",
-                              admissible=_densify_ok),
-            ],
-        ),
+        "csr": Engine(fmt="csr", variants=[
+            KernelVariant(1, "xla_segment_sum", _csr_xla,
+                          "gather + row segment-sum (≙ K1/K3 row-parallel, "
+                          "spmm_csr_k1.cu:12-34)",
+                          admissible=_gather_ok),
+            densify(2), blocksparse(3), compensated(4)]),
+        "coo": Engine(fmt="coo", variants=[
+            KernelVariant(1, "xla_segment_sum", _coo_xla,
+                          "atomic-free scatter via segment-sum (≙ K5 "
+                          "atomicAdd, spmm_coo_k1.cu:8-27)",
+                          admissible=_gather_ok),
+            blocksparse(2), compensated(3), densify(4)]),
+        "bsr": Engine(fmt="bsr", variants=[
+            KernelVariant(1, "xla_block_einsum", _bsr_xla,
+                          "gathered-panel batched matmul + block-row "
+                          "segment-sum (≙ K6, spmm_bsr_k1.cu:8-41)",
+                          admissible=_bsr_gather_ok),
+            blocksparse(2), compensated(3), densify(4)]),
+        "ell": Engine(fmt="ell", variants=[
+            KernelVariant(1, "xla_segment_sum", _ell_xla,
+                          "column-slot scatter via segment-sum (≙ K7/K8 "
+                          "atomicAdd scatter, spmm_ell_k1.cu:11-35)",
+                          admissible=_gather_ok),
+            blocksparse(2), compensated(3), densify(4)]),
     }
 
 

@@ -2,16 +2,16 @@
 
 The reference's engine family dispatches within one user-chosen format; the
 north-star capability (BASELINE.json) adds automatic selection: inspect the
-sparsity pattern and pick the best (format, kernel) pair.  Heuristics are
-TPU-motivated:
+sparsity pattern and pick the (format, kernel) pair.  The rules follow the
+dispatch thresholds measured on the card (kernels/dispatch.py):
 
-- real block structure (high block-level fill under a candidate blocking)
-  → BSR block-streaming on the MXU;
-- moderate-to-high density (≥ ~2%) → tile-sparse MXU densify (nonzero tiles
-  dominate, MXU amortizes);
-- hyper-sparse, irregular → XLA gather + segment-sum (VPU-bound, avoids
-  per-tile overhead);
-- low row-length variance with small max ⇒ ELL-friendly padding.
+- real block structure (well-filled 4×4 blocks) → BSR, else CSR, with:
+- dense enough, with an affordable dense A → densify + cuBLAS;
+- tiles of the block-sparse kernel well filled (pruned weights) → the
+  Triton block-sparse kernel;
+- low row-length variance with small max ⇒ ELL-friendly padding, gather
+  + segment-sum;
+- otherwise (hyper-sparse, irregular) → CSR gather + segment-sum.
 """
 
 from __future__ import annotations
@@ -30,9 +30,8 @@ class SparsityStats:
     row_nnz_mean: float
     row_nnz_max: int
     row_nnz_cv: float  # coefficient of variation (imbalance)
-    block_fill_8x128: float  # nnz density within nonempty (8,128) blocks
-    nonempty_tiles_128: int  # nonempty (128,128) tiles
-    tile_occupancy: float  # nnz / (nonempty_tiles * chunk) — tile work efficiency
+    block_fill_4x4: float  # nnz density within nonempty (4, 4) blocks
+    tile_fill: float  # nnz density within the kernel's nonempty tiles
 
 
 def analyze(a) -> SparsityStats:
@@ -51,46 +50,42 @@ def analyze(a) -> SparsityStats:
         cap = nonempty * bh * bw
         return nonempty, (nnz / cap if cap else 0.0)
 
-    ne8, fill8 = block_stats(8, 128)
-    ne128, _ = block_stats(128, 128)
-    occupancy = nnz / (ne128 * 128.0) if ne128 else 0.0
+    from tpuspmm.kernels.blocksparse_gpu import BK, BM
+
+    _, fill4 = block_stats(4, 4)
+    _, tile_fill = block_stats(BM, BK)
 
     return SparsityStats(
         shape=(m, k), nnz=nnz, density=nnz / (m * k) if m * k else 0.0,
         row_nnz_mean=float(mean), row_nnz_max=int(row_counts.max()) if m else 0,
-        row_nnz_cv=cv, block_fill_8x128=float(fill8),
-        nonempty_tiles_128=int(ne128), tile_occupancy=float(occupancy),
+        row_nnz_cv=cv, block_fill_4x4=float(fill4),
+        tile_fill=float(tile_fill),
     )
 
 
-def select_format(a, n_width: int = 256,
-                  vmem_budget_bytes: int = 8 * 1024 * 1024) -> Tuple[str, str]:
+def select_format(a, n_width: int = 256) -> Tuple[str, str]:
     """Return (format, kernel_name) recommendation for this matrix."""
-    from tpuspmm.kernels.cres_spmm import fits_vmem_out
-
-    stats = analyze(a)
-    if stats.block_fill_8x128 > 0.5:
-        return "bsr", "pallas_block_stream"
-    # measured dispatch routing (dispatch._CHIP_THRESHOLDS): past ~0.4%
-    # density with an affordable dense A, one MXU matmul on the cached
-    # densified operand beats every sparse decomposition — keep the
-    # --auto recommendation consistent with the measured heuristic
+    from tpuspmm.config import default_config
+    from tpuspmm.engine.registry import gather_fits
+    from tpuspmm.kernels import blocksparse_gpu
     from tpuspmm.kernels.dispatch import thresholds
 
+    stats = analyze(a)
     th = thresholds()
+    # real block structure keeps its blocks: BSR whatever the kernel
+    fmt = "bsr" if stats.block_fill_4x4 > 0.5 else "csr"
     if (stats.density >= th["densify_min_density"]
             and stats.shape[0] * stats.shape[1] * 4
             <= th["densify_max_bytes"]):
-        return "csr", "xla_densify_matmul"
-    # tile-sparse pays off when each visited tile carries enough nnz
-    if stats.tile_occupancy > 0.25 or stats.density > 0.02:
-        m_pad = -(-stats.shape[0] // 128) * 128
-        n_pad = -(-n_width // 128) * 128
-        if fits_vmem_out(m_pad, n_pad, 128, budget_bytes=vmem_budget_bytes):
-            # output fits VMEM → k-major C-resident beats tile streaming
-            return "csr", "pallas_c_resident"
-        return "csr", "pallas_tile_mxu"
-    if stats.row_nnz_cv < 0.5 and stats.row_nnz_max <= 4 * max(stats.row_nnz_mean, 1.0):
+        return fmt, "xla_densify_matmul"
+    if (stats.tile_fill >= th["blocksparse_min_fill"]
+            and blocksparse_gpu.runnable(default_config().interpret)):
+        return fmt, "triton_blocksparse"
+    if fmt == "bsr":
+        return "bsr", "xla_block_einsum"
+    if (stats.row_nnz_cv < 0.5
+            and stats.row_nnz_max <= 4 * max(stats.row_nnz_mean, 1.0)
+            and gather_fits(a, n_width)):
         return "ell", "xla_segment_sum"
     return "csr", "xla_segment_sum"
 
@@ -103,18 +98,15 @@ def auto_spmm(a, b, config=None):
 
     config = config or default_config()
     n_width = int(np.shape(b)[1])
-    fmt, kernel_name = select_format(a, n_width=n_width,
-                                     vmem_budget_bytes=config.vmem_budget_bytes)
+    fmt, kernel_name = select_format(a, n_width=n_width)
     if a.format_name != fmt:
         a = convert.to_format(a, fmt)
     engine = get_engine(fmt)
     variant = next(v for v in engine.variants if v.name == kernel_name)
-    if variant.admissible is not None and not variant.admissible(a, b, config):
-        # recommendation inadmissible for this operand — fall back to the
-        # measured dispatch heuristic rather than crash (dispatch honors the
-        # interpret flag; its VMEM gates use library defaults)
+    if variant.inadmissible_reason(a, b, config):
+        # recommendation inadmissible for this operand — serve the
+        # dispatcher's route rather than crash
         from tpuspmm.kernels import dispatch
 
-        return dispatch.spmm_pallas(a, b, interpret=config.interpret,
-                                    config=config), fmt, "dispatch"
+        return dispatch.spmm_auto(a, b, config), fmt, "dispatch"
     return variant.fn(a, b, config), fmt, kernel_name

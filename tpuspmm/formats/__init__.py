@@ -1,6 +1,6 @@
 """Sparse/dense matrix containers (JAX-pytree friendly).
 
-TPU-native re-design of the reference's format layer
+Re-design of the reference's format layer
 (`reference/include/formats/matrix.hpp:16-47` class hierarchy and the
 per-format loaders in `reference/src/formats/*.cu`).  Unlike the reference's
 host/device pointer-juggling classes, these are immutable dataclasses whose

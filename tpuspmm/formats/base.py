@@ -1,7 +1,7 @@
 """Shared machinery for sparse-format containers.
 
 Replaces the reference's `Matrix` / `SparseMatrix` virtual base classes
-(`reference/include/formats/matrix.hpp:10-47`).  On TPU there is no manual
+(`reference/include/formats/matrix.hpp:10-47`).  Under XLA there is no manual
 `allocateSpace`/`copy2Device` lifecycle (`reference/src/formats/sparse_csr.cu:110-161`);
 a format instance is a pytree of arrays and `to_device()` / `to_host()` are
 whole-pytree transfers.
@@ -76,8 +76,8 @@ class MatrixBase:
     # effective support float32-only per SURVEY.md §2.5).  Here any value
     # dtype numpy knows (f32, f64, bf16 via ml_dtypes) can be carried by a
     # container; the f64 path serves the oracle/validation tier, the bf16
-    # path the serving tier (kernels gather bf16 operands in one exact MXU
-    # pass).  Indices are untouched.
+    # path the serving tier (kernels multiply bf16 operands in one exact
+    # tensor-core dot).  Indices are untouched.
     def astype(self, dtype) -> "MatrixBase":
         """New container with values (and dense blocks) cast to `dtype`."""
         kwargs = {}

@@ -1,9 +1,10 @@
 """Block Sparse Row container.
 
-TPU-native counterpart of `SparseMatrixBSR`
+Counterpart of `SparseMatrixBSR`
 (reference/include/formats/sparse_bsr.hpp:12-57,
-reference/src/formats/sparse_bsr.cu).  BSR is the flagship format on TPU:
-stored blocks feed the MXU directly (see tpuspmm/kernels/bsr_spmm.py).
+reference/src/formats/sparse_bsr.cu): the format of block-pruned weights,
+whose stored blocks the block-sparse kernel (tpuspmm/kernels/
+blocksparse_gpu.py) re-tiles into its dense tiles.
 Unlike the reference — whose shipped data degenerates to 1×1 blocks
 (reference/utils/python_utils/convert_mtx.py:22) and whose `fromDense`
 throws Not-Implemented (reference/src/formats/sparse_bsr.cu:254-295) —

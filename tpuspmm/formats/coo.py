@@ -1,6 +1,6 @@
 """Coordinate-format container.
 
-TPU-native counterpart of `SparseMatrixCOO`
+Counterpart of `SparseMatrixCOO`
 (reference/include/formats/sparse_coo.hpp:11-39,
 reference/src/formats/sparse_coo.cu).  COO semantics follow the reference's
 atomicAdd scatter kernel (reference/src/spmm/coo/spmm_coo_k1.cu:24): duplicate

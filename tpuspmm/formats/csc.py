@@ -8,7 +8,7 @@ reference corpus is loadable.  Layout mirrors ``.csr``: header
 "rows cols nnz", colptr line, row-index line, values line.
 
 Compute lowers through the shared triplet machinery (CSC is the transpose
-view of CSR; on TPU there is no column-major kernel advantage — XLA owns
+view of CSR; there is no column-major kernel advantage — XLA owns
 layout).
 """
 

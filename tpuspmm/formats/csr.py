@@ -1,6 +1,6 @@
 """Compressed Sparse Row container.
 
-TPU-native counterpart of `SparseMatrixCSR`
+Counterpart of `SparseMatrixCSR`
 (reference/include/formats/sparse_csr.hpp:11-39,
 reference/src/formats/sparse_csr.cu).  Arrays may be numpy or jax; the class
 is a registered pytree so it can cross `jit` boundaries directly instead of

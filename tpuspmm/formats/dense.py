@@ -1,8 +1,8 @@
 """Dense matrix helpers.
 
-TPU-native counterpart of `DenseMatrix`
+Counterpart of `DenseMatrix`
 (reference/include/formats/dense.hpp:18-52, reference/src/formats/dense.cu).
-On TPU a dense operand is just an array; XLA owns physical layout, so the
+A dense operand is just an array; XLA owns physical layout, so the
 reference's explicit host-side ordering transpose (`toOrdering`,
 dense.cu:140-191) has no device-facing role.  A thin wrapper keeps the
 reference's row/col-major notion for file round-trips and report records
@@ -49,7 +49,7 @@ class DenseMatrix(MatrixBase):
     def to_ordering(self, ordering: str) -> "DenseMatrix":
         """Logical no-op on values; records the requested physical ordering
         (reference DenseMatrix::toOrdering, dense.cu:140-191, physically
-        transposes the buffer — XLA manages layout on TPU)."""
+        transposes the buffer — XLA manages layout)."""
         if ordering == self.ordering:
             return self
         return dataclasses.replace(self, ordering=ordering)

@@ -1,6 +1,6 @@
 """Column-major ELLPACK container.
 
-TPU-native counterpart of `SparseMatrixELL`
+Counterpart of `SparseMatrixELL`
 (reference/include/formats/sparse_ell.hpp:11-37,
 reference/src/formats/sparse_ell.cu).  The reference's ELL is *column-major*:
 for each column j of A it stores up to `maxColNnz` (row-index, value) slots,

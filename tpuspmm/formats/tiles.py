@@ -1,22 +1,15 @@
-"""Tile-plan preprocessing: unstructured sparsity → MXU-sized tile chunks.
-
-This is the TPU answer to the reference's CUDA decompositions (SURVEY.md
-§2.4).  Where the CUDA kernels assign threads to output elements
-(spmm_csr_k1.cu:12-34), warps to nnz chunks (spmm_csr_k2.cu:46-53), or
-threads to nonzeros (spmm_coo_k1.cu:8-27), the TPU has one wide core per
-chip and a 128×128 systolic array — so the unit of work is a *tile pair*:
-a (TM × TK) tile of A against a (TK × TN) panel of B.
+"""Tile-plan preprocessing: unstructured sparsity → fixed-size tile chunks.
 
 `build_tile_plan` groups the nonzeros of any format (via row/col/val
 triplets) by (row-tile, k-tile), orders groups row-tile-major, and splits
 each group into fixed-size chunks of E nonzeros (padded with sentinel
-row=-1).  The Pallas kernel densifies each chunk into its A tile with two
-iota-compare one-hot matmuls on the MXU and multiplies against the B panel
-— nnz-balanced static-shape work, the merge-path idea
-(reference K2's warp rotation, spmm_csr_k2.cu:10-58) without divergence.
+row=-1) — nnz-balanced static-shape work, the merge-path idea of the
+reference's K2 warp rotation (spmm_csr_k2.cu:10-58).  The sharded xla
+local (tpuspmm/parallel/spmm.py) reads the plan as its triplet layout:
+every shard's plan has the same static shape, so the stacked plans shard
+over a mesh axis.
 
-Every row tile gets at least one (possibly all-sentinel) chunk so the
-kernel's first-visit store zero-fills empty output tiles.
+Every row tile gets at least one (possibly all-sentinel) chunk.
 """
 
 from __future__ import annotations
@@ -35,7 +28,7 @@ def _cdiv(a: int, b: int) -> int:
 class TilePlan:
     """Static-shape chunked tiling of a sparse matrix (host-built)."""
 
-    # per-chunk scalars (prefetched into SMEM by the kernel)
+    # per-chunk scalars
     rt: np.ndarray  # (C,) int32 — row-tile id, non-decreasing
     kt: np.ndarray  # (C,) int32 — k-tile id
     first: np.ndarray  # (C,) int32 — 1 iff first chunk of its row tile
@@ -60,39 +53,6 @@ class TilePlan:
     @property
     def num_k_tiles(self) -> int:
         return _cdiv(self.shape[1], self.tile_k)
-
-    @property
-    def padded_shape(self) -> Tuple[int, int]:
-        return (self.num_row_tiles * self.tile_m, self.num_k_tiles * self.tile_k)
-
-    def device_arrays(self):
-        """(rt, kt, first, rows, cols, vals) as device arrays, transferred
-        once and cached — steady-state calls must not re-pay H2D."""
-        cached = getattr(self, "_device_arrays", None)
-        if cached is None:
-            import jax
-            import jax.numpy as jnp
-
-            cached = tuple(jnp.asarray(x) for x in
-                           (self.rt, self.kt, self.first,
-                            self.rows, self.cols, self.vals))
-            if any(isinstance(x, jax.core.Tracer) for x in cached):
-                # converted under a trace — caching would leak tracers
-                return cached
-            object.__setattr__(self, "_device_arrays", cached)
-        return cached
-
-    # chunks-per-row-tile bookkeeping for the staged-B kernel
-    def chunk_ranges(self) -> Tuple[np.ndarray, np.ndarray]:
-        """(start, end) chunk index per row tile."""
-        nrt = self.num_row_tiles
-        start = np.zeros(nrt, dtype=np.int32)
-        end = np.zeros(nrt, dtype=np.int32)
-        # rt is sorted non-decreasing and covers every row tile
-        boundaries = np.searchsorted(self.rt, np.arange(nrt + 1))
-        start[:] = boundaries[:-1]
-        end[:] = boundaries[1:]
-        return start, end
 
 
 # past this many nonzeros the C++ builder (single stable sort + linear
@@ -130,7 +90,7 @@ def build_tile_plan(
     tile_r = rows // tile_m
     tile_k_ids = cols // tile_k
     # stable sort on the combined (tile_r, tile_k) key — within-group order
-    # is irrelevant to correctness (duplicates accumulate on the MXU)
+    # is irrelevant to correctness (duplicates accumulate in the sum)
     order = np.argsort(tile_r * _cdiv(shape[1], tile_k) + tile_k_ids, kind="stable")
     rows, cols, vals = rows[order], cols[order], vals[order]
     tile_r, tile_k_ids = tile_r[order], tile_k_ids[order]
@@ -174,9 +134,9 @@ def build_tile_plan(
     c_start, c_end = c_start[corder], c_end[corder]
     C = len(c_rt)
     E = chunk
-    # pad the chunk count to a multiple of 8 so the kernel can read chunk
-    # payloads through (8, E)-shaped VMEM blocks (TPU sublane tiling);
-    # padding chunks are all-sentinel and attach to the last row tile
+    # pad the chunk count to a multiple of 8 (the native builder's
+    # contract); padding chunks are all-sentinel and attach to the last
+    # row tile
     C_pad = _cdiv(max(C, 1), 8) * 8
 
     out_rt = np.zeros(C_pad, dtype=np.int32)
@@ -218,44 +178,3 @@ def build_tile_plan(
         rows=out_rows, cols=out_cols, vals=out_vals,
         shape=tuple(shape), tile_m=tile_m, tile_k=tile_k, chunk=chunk,
     )
-
-
-def plan_from_container(a, tile_m=128, tile_k=128, chunk=128) -> TilePlan:
-    """Lower any tpuspmm container to a TilePlan via its triplets.
-
-    Plans are cached on the (frozen, immutable) container so repeated
-    SpMM calls with the same matrix — the serving steady state — pay the
-    host preprocessing once.
-    """
-    from tpuspmm.formats import CSR, COO, BSR, ELL
-
-    key = (tile_m, tile_k, chunk)
-    cache = getattr(a, "_plan_cache", None)
-    if cache is None:
-        cache = {}
-        try:
-            object.__setattr__(a, "_plan_cache", cache)
-        except Exception:
-            cache = None
-    if cache is not None and key in cache:
-        return cache[key]
-
-    if isinstance(a, COO):
-        coo = a
-    elif isinstance(a, CSR):
-        coo = a.to_coo()
-    elif isinstance(a, ELL):
-        coo = a.to_coo()
-    elif isinstance(a, BSR):
-        coo = a.to_csr().to_coo()
-    elif hasattr(a, "to_coo"):
-        coo = a.to_coo()
-    else:
-        raise TypeError(type(a))
-    plan = build_tile_plan(
-        np.asarray(coo.rows), np.asarray(coo.cols), np.asarray(coo.values),
-        coo.shape, tile_m=tile_m, tile_k=tile_k, chunk=chunk,
-    )
-    if cache is not None:
-        cache[key] = plan
-    return plan

@@ -1,1 +1,1 @@
-"""Optimized Pallas TPU kernels for SpMM."""
+"""Pallas kernels and route dispatch for SpMM."""

@@ -1,128 +1,61 @@
-"""Best-kernel dispatch for the optimized path.
+"""Best-route dispatch (``spmm(method="auto")``, the same on every backend).
 
-Chooses among the strategies by format and problem geometry — the runtime
-analogue of the reference's compile-time kernel numbering
-(reference/include/engine/engine_csr.hpp:68-89), with thresholds fitted to
-measured v5e device times (bench/profile_variants.py, chained timing):
+The runtime analogue of the reference's compile-time kernel numbering
+(reference/include/engine/engine_csr.hpp:68-89):
 
-  density ≥ 0.4% and dense A ≤ 128 MiB → on-device densify + MXU matmul
-      (2048² @ 1% density: 0.17 ms vs 0.88 ms tile / 1.8 ms gather)
-  C fits VMEM and panel plan ≤ 128 MiB  → Pallas panel kernel (plan-time
-      densification; large_25605 w256: 0.26 ms gate-exact vs 0.39 cres)
-  ≥ ~40 nnz per tile chunk              → staged / C-resident / tile
-      one-hot MXU kernels by residency fit
-  otherwise                             → XLA gather + segment-sum
-      (hyper-sparse irregular: tile padding overhead dominates)
+  extreme |values| (exact.needs_compensated)   → compensated f32
+  density ≥ densify_min_density and
+      dense A ≤ densify_max_bytes              → cached densify + cuBLAS
+  the block-sparse kernel can run and its
+      plan's fill ≥ blocksparse_min_fill       → Triton block-sparse
+  density < gather_max_density and the
+      gather intermediate fits                 → XLA gather + segment-sum
+  otherwise                                    → cuSPARSE
 
-MXU-friendly BSR always takes the block-streaming kernel (the stored
-blocks are already systolic-array operands).
+The numbers are per device, keyed by the ``device_kind`` JAX reports, and
+were measured on that card (PERF.md, "Findings": uniform 4096² density
+sweep, large_25605 and a Llama-2-7B-shaped 90% 4×4-block weight).  A GPU
+the table does not hold is an error; the ``cpu`` row exists for the tests.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
-import numpy as np
 
 from tpuspmm.formats import CSR, COO, BSR, ELL
-from tpuspmm.kernels import tile_spmm, bsr_spmm, csr_vmem, cres_spmm
-from tpuspmm.kernels.common import round_up
 
-# Thresholds fitted per chip (VERDICT r1 item 7).  v5e numbers are measured
-# (see module docstring); conservative so CPU/interpret tests exercise every
-# path.  Tile/cres vs gather crossover measured at ~40 nnz/chunk on v5e:
-# large_25605 (70/chunk) cres 0.47 ms vs gather 1.3 ms; large_21074
-# (32/chunk) gather 1.32 ms vs cres 1.47 ms.  v5p/v4 entries scale the
-# crossover by the chip's compute:bandwidth ratio relative to v5e (the MXU
-# kernels win sooner where flops are cheaper relative to HBM) — refit when
-# that hardware is in the loop.
-_CHIP_THRESHOLDS = {
-    # panel_step_us / panel_hbm_gbps / panel_gather_gbps feed the panel
-    # geometry cost model (panel_spmm.choose_panel_geometry):
-    # per-grid-step overhead, EFFECTIVE plan-stream bandwidth (well below
-    # HBM peak — the plan interleaves with B-tile refetches and the
-    # output-scatter slices), and the effective bandwidth of the XLA row
-    # gather that un-permutes a row-reordered output.  v5e step/strip/HBM
-    # values are the round-4 least-squares FIT over the 10 honest
-    # (chain-lengthened) ablation records (bench/fit_panel_model.py on
-    # results/ablate_panel_r4.jsonl: step 0.0965 µs, strip 0.00247 µs,
-    # 168 GB/s; residual RMS 0.0139 ms on 0.14–1.0 ms serves).  The
-    # round-3 fit this replaces (0.1334/0.00058/251, residual 0.123 ms)
-    # was fitted over short-chain records whose timing carried ~2.3x
-    # spread on identical geometries (BENCHMARKS.md round 4) — its strip
-    # constant was 4x low and its residual 9x worse.  Autotune still
-    # measures the model's top geometry candidates and pins the measured
-    # winner, so the constants steer the candidate set, not the final
-    # pick.  The gather term was not identifiable from those records;
-    # 300 GB/s kept from the direct m=20000 row-gather measurement
-    # (0.107 ms ⇒ ~383 GB/s; 300 as margin).  v5p/v4 bandwidths scale
-    # the FITTED v5e row by nominal HBM ratio (×3 / ×1.5); step and
-    # strip costs copied (fixed per-step/per-RMW costs, not
-    # bandwidth-bound) — refit when that hardware is in the loop.
-    "v5e": {"densify_max_bytes": 128 * 1024 * 1024,
-            "densify_min_density": 0.004,
-            "tile_min_nnz_per_chunk": 40.0,
-            "panel_max_plan_bytes": 128 * 1024 * 1024,
-            "panel_step_us": 0.0965,
-            "panel_strip_us": 0.00247,
-            "panel_hbm_gbps": 168.0,
-            "panel_gather_gbps": 300.0},
-    "v5p": {"densify_max_bytes": 256 * 1024 * 1024,
-            "densify_min_density": 0.003,
-            "tile_min_nnz_per_chunk": 32.0,
-            "panel_max_plan_bytes": 256 * 1024 * 1024,
-            "panel_step_us": 0.0965,
-            "panel_strip_us": 0.00247,
-            "panel_hbm_gbps": 504.0,
-            "panel_gather_gbps": 900.0},
-    "v4": {"densify_max_bytes": 128 * 1024 * 1024,
-           "densify_min_density": 0.004,
-           "tile_min_nnz_per_chunk": 36.0,
-           "panel_max_plan_bytes": 128 * 1024 * 1024,
-           "panel_step_us": 0.0965,
-           "panel_strip_us": 0.00247,
-           "panel_hbm_gbps": 252.0,
-           "panel_gather_gbps": 450.0},
+_DEVICE_THRESHOLDS = {
+    # H100 SXM: densify ties cuSPARSE at 10% uniform density and loses
+    # below it; the kernel wins where its tiles are well filled (10% on
+    # the block-pruned weight) and loses where they are not (1% on
+    # large_25605); among the rest the gather wins below ~1% density
+    # (0.1%, 0.5%, large_25605) and cuSPARSE above it (2%, 10%)
+    "NVIDIA H100 80GB HBM3": {"densify_max_bytes": 256 * 1024 * 1024,
+                              "densify_min_density": 0.15,
+                              "blocksparse_min_fill": 0.05,
+                              "gather_max_density": 0.01},
     "cpu": {"densify_max_bytes": 128 * 1024 * 1024,
-            "densify_min_density": 0.004,
-            "tile_min_nnz_per_chunk": 40.0,
-            "panel_max_plan_bytes": 128 * 1024 * 1024,
-            "panel_step_us": 0.0965,
-            "panel_strip_us": 0.00247,
-            "panel_hbm_gbps": 168.0,
-            "panel_gather_gbps": 300.0},
+            "densify_min_density": 0.15,
+            "blocksparse_min_fill": 0.05,
+            "gather_max_density": 0.01},
 }
-
-_thresholds_cache = None
 
 
 def thresholds() -> dict:
-    """Dispatch thresholds for the detected chip.
+    """Dispatch thresholds of the current device."""
+    from tpuspmm.config import device_kind, platform
 
-    Never forces JAX backend initialization (host-only plan building must
-    not block on a remote backend handshake): before backends exist this
-    returns the "cpu" row — whose panel constants mirror v5e — WITHOUT
-    caching it, so a later call in the same process picks up the real
-    chip once the backend is live.  ``TPUSPMM_CHIP`` overrides detection.
-    """
-    global _thresholds_cache
-    if _thresholds_cache is None:
-        from tpuspmm.engine.report import detect_chip
-
-        chip = detect_chip(initialize=False)
-        row = _CHIP_THRESHOLDS.get(chip, _CHIP_THRESHOLDS["v5e"])
-        if chip == "cpu":
-            return row  # may be the pre-init fallback — don't pin it
-        _thresholds_cache = row
-    return _thresholds_cache
+    if platform() == "cpu":
+        return _DEVICE_THRESHOLDS["cpu"]
+    kind = device_kind()
+    if kind not in _DEVICE_THRESHOLDS:
+        raise KeyError(f"no dispatch thresholds measured for device "
+                       f"{kind!r}; add a row to dispatch._DEVICE_THRESHOLDS")
+    return _DEVICE_THRESHOLDS[kind]
 
 
-# v5e values kept as module constants for direct reference/tests
-DENSIFY_MAX_BYTES = _CHIP_THRESHOLDS["v5e"]["densify_max_bytes"]
-DENSIFY_MIN_DENSITY = _CHIP_THRESHOLDS["v5e"]["densify_min_density"]
-TILE_MIN_NNZ_PER_CHUNK = _CHIP_THRESHOLDS["v5e"]["tile_min_nnz_per_chunk"]
-
-
-def _spmm_xla_any(a, b):
+def spmm_xla_any(a, b):
+    """The XLA gather route of any container."""
     from tpuspmm.ops import xla
 
     if isinstance(a, CSR):
@@ -138,117 +71,52 @@ def _spmm_xla_any(a, b):
     raise TypeError(type(a))
 
 
-def _densify(a, b):
-    # shared with the registry's xla_densify_matmul variant: densify ONCE
-    # (cached on the COO view), serve one HIGHEST MXU matmul per call —
-    # the previous per-call scatter re-paid a zeros-init + nnz scatter of
-    # the full dense A on every serve
-    from tpuspmm.ops import xla
-
-    return xla.spmm_densify_cached(a, b)
-
-
-def spmm_pallas(a, b, interpret=None, config=None):
-    """Best-strategy SpMM (the `method="pallas"` / auto path).
-
-    ``config`` (optional) supplies the VMEM budget and tile geometry for
-    the residency gates; library defaults otherwise."""
+def choose_route(a, n: int, config=None) -> str:
+    """Name of the route :func:`spmm_auto` serves ``a`` with at width
+    ``n``."""
     from tpuspmm.config import default_config
-
-    config = config or default_config()
-    budget = config.vmem_budget_bytes
-    b = jnp.asarray(b)
-
-    # extreme-|value| matrices: a single f32 product's rounding can breach
-    # the abs-1e-3 gate, so every plain-f32 strategy is operand-luck there
-    # (BENCHMARKS.md medium_2880 boundary case) — the heuristic auto path
-    # serves the deterministic compensated accumulation instead, but only
-    # when its (m, W)-padded pass is affordable (a skewed heavy row must
-    # not turn an nnz-proportional problem into an O(m*W*n) one)
+    from tpuspmm.kernels import blocksparse_gpu
     from tpuspmm.ops import exact
 
+    config = config or default_config()
+    # extreme-|value| matrices: a single f32 product's rounding can breach
+    # the abs-1e-3 gate, so every plain-f32 route is operand luck there —
+    # serve the deterministic compensated accumulation, when its
+    # (m, W)-padded pass is affordable
     if exact.needs_compensated(a) and exact.exact_admissible(a):
-        return exact.spmm_exact(a, b)
-
-    if isinstance(a, BSR) and bsr_spmm.mxu_friendly(a.block_size):
-        return bsr_spmm.spmm_bsr_stream(a, b, interpret=interpret)
-    if isinstance(a, BSR):
-        packed = bsr_spmm.pack_blocks(a)
-        if packed is not None:
-            return bsr_spmm.spmm_bsr_stream(packed, b, interpret=interpret)
-
+        return "exact"
     th = thresholds()
     m, k = a.shape
     if (m * k * 4 <= th["densify_max_bytes"]
             and a.sparsity >= th["densify_min_density"]):
-        return _densify(a, b)
+        return "densify"
+    if (blocksparse_gpu.runnable(config.interpret)
+            and blocksparse_gpu.block_plan(a).fill
+            >= th["blocksparse_min_fill"]):
+        return "blocksparse"
+    from tpuspmm.engine.registry import gather_fits
 
-    # panel kernel (plan-time densification): measured fastest gate-exact
-    # strategy whenever the stacked dense plan is HBM-affordable
-    # (large_25605 w256: 0.26 ms vs 0.39 cres / 1.2 tile / 2.0 gather,
-    # v5e); outputs beyond the VMEM budget are row-supertiled
-    from tpuspmm.kernels import panel_spmm
+    if a.sparsity < th["gather_max_density"] and gather_fits(a, n):
+        return "xla"
+    return "vendor"
 
-    n_pad = round_up(b.shape[1], 128)
-    # the resolver applies the per-chip plan-bytes cap DURING the search,
-    # so a geometry whose plan is too large is skipped in favour of a
-    # smaller admissible one rather than knocking the matrix off the
-    # panel path entirely
-    geom = panel_spmm.resolve_panel_geometry(
-        a, n_pad, panel_strips=config.panel_strips, budget_bytes=budget,
-        plan_bytes_cap=th["panel_max_plan_bytes"])
 
-    # the run-length pair kernel stores zero plan padding and admits
-    # geometries the panel cannot (width-tiled outputs too wide for any
-    # supertile).  Both searches model serve time in the same units and
-    # constants, so when both admit, the cheaper model serves (measured
-    # on-chip r3: pair wins medium_4096 0.13 vs 0.94 ms and large_15120
-    # 0.08 vs 0.48 ms while panel holds large_25605/21074/20000 — the
-    # preference is matrix-shaped, not fixed)
-    from tpuspmm.kernels import pair_spmm
+def spmm_auto(a, b, config=None):
+    """Best-route SpMM by :func:`choose_route`."""
+    from tpuspmm.config import default_config
+    from tpuspmm.kernels import blocksparse_gpu
+    from tpuspmm.ops import exact, vendor, xla
 
-    pgeom = pair_spmm.resolve_pair_geometry(
-        a, n_pad, budget_bytes=budget,
-        plan_bytes_cap=th["panel_max_plan_bytes"])
-    if (geom is not None and pgeom is not None
-            and geom.cost_us is not None and pgeom.cost_us is not None
-            and pgeom.cost_us < geom.cost_us):
-        geom = None  # pair's modelled serve time wins
-    if geom is not None:
-        pplan = panel_spmm.panel_plan_from_geometry(a, geom)
-        return panel_spmm.spmm_panel(pplan, b, interpret=interpret,
-                                     budget_bytes=budget)
-
-    if pgeom is not None:
-        # build the plan from the geometry just resolved (mirrors the
-        # panel path): spmm_pair(a, ...) would re-resolve under the
-        # GLOBAL plan-bytes cap and could serve a geometry exceeding the
-        # per-chip policy checked above (advisor finding r2)
-        m_pad = round_up(a.shape[0], 8)
-        qplan = pair_spmm.pair_plan_from_container(
-            a, chunk_strips=pgeom.chunk_strips,
-            sm=None if pgeom.sm == m_pad else pgeom.sm, n_pad=n_pad,
-            geom=pgeom)
-        return pair_spmm.spmm_pair(qplan, b, interpret=interpret,
-                                   budget_bytes=budget,
-                                   tile_n=pgeom.tile_n)
-
-    plan = tile_spmm.plan_from_container(
-        a, tile_m=config.tile_m, tile_k=config.tile_k, chunk=config.chunk_nnz)
-    if a.nnz / max(plan.num_chunks, 1) >= th["tile_min_nnz_per_chunk"]:
-        n_pad = round_up(b.shape[1], 128)
-        k_pad = plan.num_k_tiles * plan.tile_k
-        m_pad = plan.num_row_tiles * plan.tile_m
-        chunk_bytes = plan.num_chunks * plan.chunk * 12
-        if csr_vmem.fits_vmem(k_pad, n_pad, plan.tile_m, budget_bytes=budget,
-                              chunk_bytes=chunk_bytes, tile_k=plan.tile_k):
-            return csr_vmem.spmm_staged(plan, b, interpret=interpret,
-                                        budget_bytes=budget,
-                                        mode=config.precision_mode)
-        if cres_spmm.fits_vmem_out(m_pad, n_pad, plan.tile_k, budget_bytes=budget):
-            return cres_spmm.spmm_cres(plan, b, interpret=interpret,
-                                       budget_bytes=budget,
-                                       mode=config.precision_mode)
-        return tile_spmm.spmm_tiles(plan, b, interpret=interpret,
-                                    mode=config.precision_mode)
-    return _spmm_xla_any(a, b)
+    config = config or default_config()
+    b = jnp.asarray(b)
+    route = choose_route(a, int(b.shape[1]), config)
+    if route == "exact":
+        return exact.spmm_exact(a, b)
+    if route == "densify":
+        return xla.spmm_densify_cached(a, b)
+    if route == "blocksparse":
+        return blocksparse_gpu.spmm_blocksparse(a, b,
+                                                interpret=config.interpret)
+    if route == "vendor":
+        return vendor.spmm_vendor(a, b)
+    return spmm_xla_any(a, b)

@@ -1,6 +1,6 @@
 // Native text-parsing kernels for tpuspmm.
 //
-// TPU-native counterpart of the reference's native I/O layer: the NIST mmio
+// Counterpart of the reference's native I/O layer: the NIST mmio
 // reader tool (reference/utils/utils/mmio.c, read_matrix.cpp:8-98) and the
 // C++ text loaders inside each format class
 // (e.g. reference/src/formats/sparse_csr.cu:12-51).  The Python loaders in

@@ -1,11 +1,10 @@
-// Native tile-plan builder: unstructured triplets -> MXU-sized chunk plan.
+// Native tile-plan builder: unstructured triplets -> fixed-size chunk plan.
 //
 // C++ twin of tpuspmm/formats/tiles.py::build_tile_plan (same output
 // contract, bit-for-bit): group nonzeros by (row-tile, k-tile), row-tile-
 // major, split groups into fixed-size chunks of E slots padded with
 // row=-1 sentinels, guarantee every row tile at least one chunk, pad the
-// chunk count to a multiple of 8 for (8, E) sublane-aligned payload
-// blocks.  This is the ingest-side hot path of the framework (the
+// chunk count to a multiple of 8.  This is the ingest-side hot path of the framework (the
 // reference's native loaders + host prolog, reference/src/formats/*.cu);
 // at tens of millions of nonzeros the numpy version's argsort+gather
 // dominates preprocessing, this one is a single stable sort + linear

@@ -1,17 +1,17 @@
 """Compensated (error-free-transformation) SpMM for extreme-value matrices.
 
 The reference guarantees its oracle comparison by accumulating in double
-(reference/src/main.cu:185); the TPU MXU/VPU have no f64.  For matrices
+(reference/src/main.cu:185); this library computes in f32 (an f64
+accumulator is a later alternative, ROADMAP Design 3).  For matrices
 with huge dynamic range (the corpus's medium_1484/2880/4000 carry
 |values| up to ~1e7) a single f32 product already rounds by up to
 eps*|a*b| ~ 1e0 — far beyond the abs-1e-3 gate — so on outputs where the
 row's products cancel, EVERY plain-f32 strategy (tile-ordered or
-row-ordered) passes or fails by luck of the operand (BENCHMARKS.md
-"boundary case": medium_2880 misses by ~0.03 under tile order, passes by
-~0.001 under row order).
+row-ordered) passes or fails by luck of the operand (medium_2880 misses
+by ~0.03 under one summation order and passes by ~0.001 under another).
 
 This module makes the gate deterministic with pure-f32 error-free
-transformations on the VPU:
+transformations:
 
 - Dekker/Veltkamp two-product: p = fl(a*b) plus the EXACT residual
   e = a*b - p, via 12+12-bit operand splits (all f32 ops, no FMA needed).
@@ -22,7 +22,7 @@ The true row sum is Σ(p_i + e_i) exactly; accumulating p_i with TwoSum
 and folding the residuals + e_i into a compensation term leaves a final
 error of O(eps*|result| + n*eps^2*Σ|p_i|) — orders of magnitude inside
 the rel-1e-2/abs-1e-3 gate for any operand, independent of summation
-order.  Cost: one (m, W, n)-shaped pass (W = max row nnz) of VPU work —
+order.  Cost: one (m, W, n)-shaped pass (W = max row nnz) of elementwise work —
 reserved for matrices that need it (``needs_compensated``).
 """
 
@@ -42,7 +42,7 @@ EXTREME_ABS_VALUE = 2.0e4
 
 # Affordability caps: the compensated pass materializes (m, W) slot
 # arrays (W = max row nnz, 8 B/slot for colidx+vals) and does O(m*W*n)
-# VPU work, so one pathological heavy row must not reroute a huge matrix
+# elementwise work, so one pathological heavy row must not reroute a huge matrix
 # here — the dispatcher falls through to the nnz-proportional strategies
 # (which still per-run verify) when these caps are exceeded.
 EXACT_MAX_SLOT_BYTES = 256 * 1024 * 1024
@@ -211,8 +211,8 @@ def _spmm_compensated(colidx_t, vals_t, b, one):
 def spmm_exact(a, b):
     """C = A @ B with compensated f32 accumulation: deterministic
     rel-1e-2/abs-1e-3 gate pass regardless of value magnitude or
-    summation order (the TPU-native answer to the reference's f64
-    accumulator, reference/src/main.cu:185)."""
+    summation order (the f32 answer to the reference's f64 accumulator,
+    reference/src/main.cu:185)."""
     colidx, vals = _rowmajor_slots(a)
     # own attribute name: `_device_arrays` is the tuple-typed cache the
     # plan objects use — sharing it with a dict here would break any code

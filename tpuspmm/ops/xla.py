@@ -1,16 +1,15 @@
 """XLA-level SpMM implementations (no Pallas) — gather + segment-sum.
 
-These are the TPU-idiomatic counterparts of the reference's simplest CUDA
+These are the atomic-free counterparts of the reference's simplest CUDA
 strategies and serve as kernel variant #1 per format in the engine registry:
 
 - `spmm_triplets`: value-scaled gather of B rows + row segment-sum.  The
   sort-free-scatter semantics of the reference's COO atomicAdd kernel
   (reference/src/spmm/coo/spmm_coo_k1.cu:8-27) and the per-output-element
   CSR walk (reference/src/spmm/csr/spmm_csr_k1.cu:12-34) both reduce to
-  this on a vector machine: XLA lowers the gather and the segment reduction
-  onto the VPU without any atomics.
+  this: XLA lowers the gather and the segment reduction without atomics.
 - `spmm_bsr_blocks`: gathered-block batched matmul + block-row segment-sum —
-  the MXU-friendly analogue of the reference's block-row kernel
+  the dense-block analogue of the reference's block-row kernel
   (reference/src/spmm/bsr/spmm_bsr_k1.cu:8-41).
 
 All functions are jit-compatible pure array functions; `num_rows`-style
@@ -50,7 +49,7 @@ def spmm_bsr_blocks(block_rows, indices, blocks, b, *, num_block_rows: int, bloc
     """C = Σ_blocks A_block @ B_panel, segment-summed over block rows.
 
     `block_rows[i]` is the block-row of stored block i (expanded from
-    indptr on the host).  The batched matmul maps directly onto the MXU.
+    indptr on the host).  The batched matmul is one dense batched dot.
     """
     n = b.shape[1]
     if b.dtype == jnp.bfloat16:
@@ -67,12 +66,12 @@ def spmm_bsr_blocks(block_rows, indices, blocks, b, *, num_block_rows: int, bloc
 
 @functools.partial(jax.jit, static_argnames=("num_rows", "num_cols"))
 def spmm_densify(rows, cols, values, b, *, num_rows: int, num_cols: int):
-    """Scatter A to dense on-device, then one dense MXU matmul.
+    """Scatter A to dense on-device, then one dense matmul.
 
     The winning strategy at the top of the reference's synthetic density
     sweep (0.1-0.9, reference/utils/python_utils/gen_sparse.py:63-84):
-    past ~10% density the systolic array on the densified operand beats
-    every sparse decomposition.
+    at high density a dense matmul on the densified operand beats every
+    sparse decomposition.
     """
     acc = jnp.float32 if b.dtype == jnp.bfloat16 else b.dtype
     a_dense = jnp.zeros((num_rows, num_cols), dtype=acc).at[rows, cols].add(
@@ -83,11 +82,14 @@ def spmm_densify(rows, cols, values, b, *, num_rows: int, num_cols: int):
 
 @jax.jit
 def dense_matmul(a_dense, b):
-    """One dense MXU matmul against a pre-densified (cached) A — the
+    """One dense matmul (cuBLAS) against a pre-densified (cached) A — the
     serve path of the densify variants (the scatter runs once at cache
-    build, not per call).  HIGHEST keeps the gate-exactness class of the
-    scatter-per-call spmm_densify it replaces."""
-    return jnp.dot(a_dense, b.astype(jnp.float32),
+    build, not per call).  bf16 A (stored only when lossless) times bf16
+    B has exact products and f32 accumulation; anything else runs in f32
+    at HIGHEST (true f32, not TF32)."""
+    if a_dense.dtype == jnp.bfloat16 and b.dtype == jnp.bfloat16:
+        return jnp.dot(a_dense, b, preferred_element_type=jnp.float32)
+    return jnp.dot(a_dense.astype(jnp.float32), b.astype(jnp.float32),
                    preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)
 
@@ -96,7 +98,7 @@ def spmm_densify_cached(a, b):
     """Container-level densify strategy: A is static across serving
     calls, so densify ONCE on the host (f64 accumulate — duplicates
     fold deterministically), cache the f32 dense operand on the COO
-    view, and serve one HIGHEST MXU matmul per call.  f64 operands keep
+    view, and serve one dense matmul per call.  f64 operands keep
     the scatter-per-call path so the accumulator follows the operand."""
     b = jnp.asarray(b)
     coo = coo_view(a)
@@ -111,14 +113,19 @@ def spmm_densify_cached(a, b):
                             num_rows=a.shape[0], num_cols=a.shape[1])
 
     def _build():
+        from tpuspmm.kernels.blocksparse_gpu import values_bf16_exact
+
         rows = np.asarray(coo.rows)
         cols = np.asarray(coo.cols)
         vals = np.asarray(coo.values, dtype=np.float64)
         dense = np.zeros(a.shape, np.float64)
         np.add.at(dense, (rows, cols), vals)  # duplicates accumulate
-        return jnp.asarray(dense.astype(np.float32))
+        dense = dense.astype(np.float32)
+        if values_bf16_exact(dense):
+            dense = dense.astype(jnp.bfloat16)
+        return jnp.asarray(dense)
 
-    return dense_matmul(_cached_device(coo, "dense_f32", _build), b)
+    return dense_matmul(_cached_device(coo, "dense", _build), b)
 
 
 def expand_indptr(indptr: np.ndarray, nnz: int) -> np.ndarray:
@@ -135,7 +142,7 @@ def expand_indptr(indptr: np.ndarray, nnz: int) -> np.ndarray:
 
 def _cached_device(a, key: str, build):
     """Transfer-once cache attached to the immutable container (same
-    mechanism as TilePlan.device_arrays — steady-state serving must not
+    mechanism as BlockPlan.device_arrays — steady-state serving must not
     re-pay H2D per call)."""
     cache = getattr(a, "_xla_cache", None)
     if cache is None:

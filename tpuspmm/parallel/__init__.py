@@ -3,13 +3,14 @@
 The CUDA reference is strictly single-device (one hard-coded GPU,
 reference/src/main.cu:176; no collectives anywhere — SURVEY.md §2.4, §5).
 This package is the new-build capability layered on top: sparse operands
-row/block-partitioned across TPU chips, dense panels replicated, column-
-sharded, or streamed around an ICI ring with compute overlap, and a
+row/block-partitioned across devices, dense panels replicated, column-
+sharded, or streamed around a ring with compute overlap, and a
 least-squares training step demonstrating gradient collectives.
 """
 
 from tpuspmm.parallel.mesh import make_mesh, mesh_devices
-from tpuspmm.parallel.shard import RowShardedPlan, KBucketedTriplets
+from tpuspmm.parallel.shard import (RowShardedPlan, KBucketedTriplets,
+                                   StackedBlockPlans, bucket_blockplans)
 from tpuspmm.parallel.spmm import (
     spmm_row_sharded,
     spmm_ring,
@@ -24,6 +25,8 @@ __all__ = [
     "mesh_devices",
     "RowShardedPlan",
     "KBucketedTriplets",
+    "StackedBlockPlans",
+    "bucket_blockplans",
     "spmm_row_sharded",
     "spmm_ring",
     "spmm_2d",

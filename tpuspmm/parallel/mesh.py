@@ -3,13 +3,15 @@
 Axis convention across the package:
 
 - ``"rows"`` — partitions the sparse operand's (and output's) row dimension.
-  The SpMM analogue of data parallelism: each chip owns a row slab of A and
-  computes the matching slab of C.
+  The SpMM analogue of data parallelism: each device owns a row slab of A
+  and computes the matching slab of C.
 - ``"cols"`` — partitions the dense operand's (and output's) column
   dimension.  The SpMM analogue of tensor parallelism over the feature dim.
 
 Collectives ride the mesh: the ring variant ppermutes B panels along
-``"rows"`` (ICI neighbours), the training step psums dB over ``"rows"``.
+``"rows"``, the training step psums dB over ``"rows"``.  The devices of
+one host are joined all to all, so the mesh shape follows the algorithm
+alone.
 """
 
 from __future__ import annotations

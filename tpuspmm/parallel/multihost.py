@@ -1,76 +1,67 @@
-"""Multi-host initialization and mesh construction.
+"""Multi-process initialization and mesh construction.
 
 The reference has no distributed backend at all (SURVEY.md §5 — single
-process, hard-coded GPU).  On TPU pods, multi-host execution is
-coordinator-based: every host runs the same program, calls
-``jax.distributed.initialize``, and sees the global device set; ICI
-carries intra-slice collectives and DCN the inter-slice tier, both
-transparent behind the mesh.
+process, hard-coded GPU).  Multi-process execution is coordinator-based:
+every process runs the same program, calls ``jax.distributed.initialize``
+with the coordinator's address, and sees the global device set; the
+collectives are transparent behind the mesh.
 
-Typical pod usage::
+Typical use::
 
     from tpuspmm.parallel import multihost
-    multihost.initialize()                  # env-driven (TPU pods: automatic)
-    mesh = multihost.pod_mesh(("rows",))    # all global devices, 1-D
-    C = spmm_row_sharded(A, B, mesh)        # same code as single-host
+    multihost.initialize("localhost:1234", num_processes=2, process_id=i)
+    mesh = multihost.global_mesh(("rows",))  # all global devices, 1-D
+    C = spmm_row_sharded(A, B, mesh)         # same code as one process
 
-Under a single process (this machine, tests) ``initialize`` is a no-op and
-``pod_mesh`` degrades to the local-device mesh.
+Without a coordinator (none given, none named by the environment)
+``initialize`` does nothing and ``global_mesh`` is the local-device mesh.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 _initialized = False
+
+# environment variables through which a launcher names the coordinator
+COORDINATOR_ENV = ("JAX_COORDINATOR_ADDRESS",)
 
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> bool:
-    """Initialize jax.distributed across hosts.
-
-    With no arguments, relies on the TPU pod environment (megascale /
-    GKE metadata) the way ``jax.distributed.initialize()`` documents.
-    Returns True if distributed mode is active, False when running
-    single-process (arguments absent and no pod environment).
-    """
+    """Initialize jax.distributed when a coordinator is given, or named by
+    the environment (``JAX_COORDINATOR_ADDRESS``).  Returns True when
+    distributed mode is active, False when there is no coordinator to
+    join.  A failure to join one raises: no process silently runs alone
+    on a sub-mesh."""
     global _initialized
     import jax
 
     if _initialized:
         return True
-    if coordinator_address is None and num_processes is None:
-        try:
-            jax.distributed.initialize()
-        except Exception as e:
-            # Distinguishable failures (coordinator briefly unreachable on a
-            # real pod) must not silently degrade to divergent per-host
-            # sub-meshes — surface the reason.
-            import warnings
-
-            warnings.warn(
-                f"jax.distributed.initialize() failed ({type(e).__name__}: {e}); "
-                "continuing single-process. If this host is part of a pod, "
-                "pass coordinator_address explicitly.")
-            return False
-    else:
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id,
-        )
+    if coordinator_address is None:
+        coordinator_address = next(
+            (os.environ[v] for v in COORDINATOR_ENV if os.environ.get(v)),
+            None)
+    if coordinator_address is None:
+        return False
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id,
+    )
     _initialized = True
     return True
 
 
-def pod_mesh(axis_names: Sequence[str] = ("rows",),
-             shape: Optional[Tuple[int, ...]] = None):
-    """Mesh over the GLOBAL device set (all hosts).
+def global_mesh(axis_names: Sequence[str] = ("rows",),
+                shape: Optional[Tuple[int, ...]] = None):
+    """Mesh over the GLOBAL device set (all processes).
 
-    1-D by default; pass ``shape`` for 2-D (e.g. ``(num_hosts,
-    devices_per_host)`` to align the ring axis with ICI neighbours so the
-    ppermute panels never cross DCN).
+    1-D by default; pass ``shape`` for 2-D (e.g. ``(num_processes,
+    devices_per_process)`` so a ring axis stays inside one host).
     """
     import jax
 

@@ -1,6 +1,6 @@
 """Profiler tracing.
 
-The reference's tracing is manual chrono brackets (SURVEY.md §5); the TPU
+The reference's tracing is manual chrono brackets (SURVEY.md §5); the JAX
 equivalent is an XLA profiler trace viewable in TensorBoard/Perfetto —
 per-kernel device times, HBM traffic, and pipeline occupancy come from the
 trace, not wall clocks.
