@@ -173,7 +173,6 @@ def single_device(gpu: bool):
         from bench import kernel_compare as kc
         from tpuspmm.formats import convert
 
-        geom = (kc.GEOMETRIES[0],)
         a = convert.load_sparse(big, "csr")
         rng = np.random.default_rng(0)
         b = rng.standard_normal((a.shape[1], 256)).astype(np.float32)
@@ -187,8 +186,9 @@ def single_device(gpu: bool):
         parts = []
         for name, m, bb in cases:
             with contextlib.redirect_stdout(io.StringIO()):
-                recs = kc.measure_case(name, m, bb, geom, repeats=10,
-                                       routes=("triton", "xla_blockplan"))
+                recs = kc.measure_case(name, m, bb, ("triton",
+                                                     "xla_blockplan"),
+                                       repeats=10)
             assert all(r["correct"] for r in recs), recs
             t = {r["route"]: r["ms"] for r in recs}
             parts.append(f"{name} triton {t['triton']:.4f} ms vs xla "

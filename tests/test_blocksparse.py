@@ -1,13 +1,16 @@
 """The block-sparse Triton kernel (tpuspmm/kernels/blocksparse_gpu.py),
-interpreted on the CPU: its plan, the kernel against the float64 oracle
-and against XLA's plain version of the same plan."""
+interpreted on the CPU: its plan and the plan's stats, the kernel against
+the float64 oracle and against XLA's plain version of the same plan
+(bench/kernel_compare.py), and the plan-size cap of the routes that
+choose it."""
 
 import ml_dtypes
 import numpy as np
 import pytest
 import scipy.sparse
 
-from tpuspmm.formats import COO, CSR, convert
+from bench.kernel_compare import plan_of, spmm_blockplan_xla
+from tpuspmm.formats import BSR, COO, CSR, convert
 from tpuspmm.kernels import blocksparse_gpu as bs
 from tpuspmm.ops import oracle
 from tpuspmm.utils.compare import allclose
@@ -41,7 +44,8 @@ def test_kernel_matches_oracle(fmt, dtype, width):
     sp[:, 40:70] = 0   # empty columns
     a = convert.to_format(sp.tocsr(), fmt)
     b = _b(150, width, dtype, seed=width)
-    out = np.asarray(bs.spmm_blocksparse(a, b, interpret=True, bm=16, bk=32))
+    out = np.asarray(bs.spmm_blocksparse(plan_of(a, 16, 32), b,
+                                         interpret=True))
     assert out.shape == (90, width)
     assert allclose(out, _ref(a, b), 1e-2, 1e-3)
     assert np.all(out[10:30] == 0)
@@ -122,7 +126,8 @@ def test_plan_stores_bf16_only_when_lossless(vals, cols, want):
 def test_plan_cached_on_container():
     a = CSR.from_scipy(_rand(50, 60, 0.1, seed=5))
     assert bs.block_plan(a) is bs.block_plan(a)
-    assert bs.block_plan(a, 16, 16) is not bs.block_plan(a)
+    assert bs.plan_stats(a) is bs.plan_stats(a)
+    assert (bs.block_plan(a).bm, bs.block_plan(a).bk) == (bs.BM, bs.BK)
 
 
 def test_device_arrays_survive_tracing():
@@ -130,26 +135,36 @@ def test_device_arrays_survive_tracing():
     import jax
 
     a = CSR.from_scipy(_rand(40, 50, 0.1, seed=6))
-    plan = bs.block_plan(a, 16, 16)
+    plan = plan_of(a, 16, 16)
     b = _b(50, 8, "f32")
-    jax.jit(lambda bb: bs.spmm_blockplan_xla(plan, bb))(b)
+    jax.jit(lambda bb: spmm_blockplan_xla(plan, bb))(b)
     out = np.asarray(bs.spmm_blocksparse(plan, b, interpret=True))
     assert allclose(out, _ref(a, b), 1e-2, 1e-3)
 
 
+@pytest.mark.parametrize("precision", ["highest", "x3", "x6"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("bm,bk", [(16, 16), (64, 64)])
-def test_plain_xla_version_matches_kernel(bm, bk, dtype):
-    """XLA's plain version of the same plan (the kernel's reference)
-    agrees with the oracle and with the kernel."""
+def test_plain_xla_version_matches_kernel(bm, bk, dtype, precision):
+    """XLA's plain version of the same plan (the kernel's reference), at
+    each dot precision the comparison times, agrees with the oracle and
+    with the kernel."""
+    import jax
+
+    from bench.kernel_compare import _precision
+
     a = CSR.from_scipy(_rand(100, 180, 0.05, seed=bm))
     b = _b(180, 40, dtype)
-    plan = bs.block_plan(a, bm, bk)
+    plan = plan_of(a, bm, bk)
     ref = _ref(a, b)
-    plain = np.asarray(bs.spmm_blockplan_xla(plan, b))
+    route = "xla_blockplan" + ("" if precision == "highest" else
+                               "_" + precision)
+    plain = np.asarray(spmm_blockplan_xla(plan, b, _precision(route)))
     kern = np.asarray(bs.spmm_blocksparse(plan, b, interpret=True))
     assert allclose(plain, ref, 1e-2, 1e-3)
     assert allclose(kern, plain, 1e-2, 1e-3)
+    assert isinstance(_precision(route), (jax.lax.Precision,
+                                          jax.lax.DotAlgorithmPreset))
 
 
 @pytest.mark.parametrize("n,want", [(1, 16), (7, 16), (100, 128), (300, 128)])
@@ -167,3 +182,82 @@ def test_split_dot_ladder_is_f32_accurate():
     got = np.asarray(bs._split_dot(jnp.asarray(x), jnp.asarray(y)))
     want = x.astype(np.float64) @ y.astype(np.float64)
     assert np.max(np.abs(got - want)) < 1e-5 * np.max(np.abs(want))
+
+
+def _stats_case(case):
+    if case == "scattered":
+        return CSR.from_scipy(_rand(300, 400, 0.002, seed=7))
+    if case == "blocks":
+        return BSR.random_blocks(256, 192, (64, 64), 0.4, seed=2)
+    if case == "duplicates":
+        return COO(rows=np.array([0, 0, 70, 70], np.int32),
+                   cols=np.array([3, 3, 100, 1], np.int32),
+                   values=np.array([0.5, 0.25, 1.0, -1.0], np.float32),
+                   shape=(80, 130))
+    if case == "bf16_values":
+        sp = _rand(150, 90, 0.05, seed=8)
+        sp.data = np.sign(sp.data).astype(np.float32)
+        return CSR.from_scipy(sp)
+    return CSR.from_scipy(scipy.sparse.csr_matrix((70, 20), dtype=np.float32))
+
+
+@pytest.mark.parametrize("case", ["scattered", "blocks", "duplicates",
+                                  "bf16_values", "empty"])
+def test_plan_stats_match_the_plan(case):
+    """plan_stats, counted from the triplets, gives the tile count, nnz,
+    fill and bytes of the plan block_plan builds."""
+    a = _stats_case(case)
+    stats = bs.plan_stats(a)
+    plan = bs.block_plan(a)
+    assert (stats.n_tiles, stats.nnz, stats.plan_bytes) == (
+        plan.n_tiles, plan.nnz, plan.plan_bytes)
+    assert stats.fill == pytest.approx(plan.fill)
+
+
+def _cache_keys(a):
+    from tpuspmm.ops.xla import coo_view
+
+    return set(getattr(coo_view(a), "_xla_cache", {}))
+
+
+def test_scattered_matrix_builds_no_plan():
+    """A scattered matrix (one nonzero per 64×64 tile) is routed past the
+    kernel from its stats alone: no tile is built on the default entry
+    point."""
+    import tpuspmm
+    from tpuspmm.kernels import dispatch
+
+    n = 4096
+    idx = np.arange(0, n, 64, dtype=np.int32)
+    a = COO(rows=np.repeat(idx, len(idx)), cols=np.tile(idx, len(idx)),
+            values=np.ones(len(idx) ** 2, np.float32), shape=(n, n))
+    assert bs.plan_stats(a).fill == 1 / (bs.BM * bs.BK)
+    assert dispatch.choose_route(a, 8) != "blocksparse"
+    b = _b(n, 8, "f32")
+    out = np.asarray(tpuspmm.spmm(a, b))
+    assert allclose(out, _ref(a, b), 1e-2, 1e-3)
+    assert "plan_stats" in _cache_keys(a)
+    assert "block_plan" not in _cache_keys(a)
+
+
+@pytest.mark.parametrize("fmt", ["csr", "coo", "bsr", "ell"])
+def test_plan_cap_refuses_the_kernel(fmt, monkeypatch):
+    """A plan above the materialisation cap is refused by the dispatcher
+    and by the registry variant, before any tile is built."""
+    from tpuspmm.config import Config
+    from tpuspmm.engine import registry
+    from tpuspmm.kernels import dispatch
+
+    a = convert.to_format(
+        BSR.random_blocks(1024, 256, (64, 64), 0.3, seed=1).to_scipy(), fmt)
+    b = _b(256, 16, "f32")
+    cfg = Config(interpret=True)
+    v = next(v for v in registry.get_engine(fmt).variants
+             if v.name == "triton_blocksparse")
+    assert dispatch.choose_route(a, 16, cfg) == "blocksparse"
+    assert v.inadmissible_reason(a, b, cfg) == ""
+    monkeypatch.setattr(registry, "GATHER_MAX_BYTES",
+                        bs.plan_stats(a).plan_bytes - 1)
+    assert dispatch.choose_route(a, 16, cfg) != "blocksparse"
+    assert "admission" in v.inadmissible_reason(a, b, cfg)
+    assert "block_plan" not in _cache_keys(a)

@@ -35,9 +35,11 @@ def case():
 
 def test_bf16_ingestion_pallas_kernels(case):
     a, b16, ref = case
+    from bench.kernel_compare import plan_of
+
     for bm, bk in ((16, 16), (64, 64)):
         out = np.asarray(blocksparse_gpu.spmm_blocksparse(
-            a, b16, interpret=True, bm=bm, bk=bk))
+            plan_of(a, bm, bk), b16, interpret=True))
         assert out.dtype == np.float32  # f32 accumulation/output
         assert allclose(out, ref, 1e-2, 1e-3), (bm, bk)
 

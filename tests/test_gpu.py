@@ -43,15 +43,16 @@ def test_kernel_compiled_matches_oracle(gpu, fmt, dtype):
     assert allclose(out, ref, 1e-2, 1e-3)
 
 
-@pytest.mark.parametrize("bm,bk,bn", [(16, 16, 128), (64, 64, 64),
-                                      (128, 64, 128)])
-def test_kernel_geometries_compile(gpu, bm, bk, bn):
+@pytest.mark.parametrize("bm,bk,n", [(16, 16, 300), (64, 64, 40),
+                                     (128, 64, 128)])
+def test_kernel_geometries_compile(gpu, bm, bk, n):
+    """Plans of the tile shapes bench/kernel_compare.py sweeps compile and
+    serve, at widths that pick different column tiles."""
+    from bench.kernel_compare import plan_of
     from tpuspmm.kernels import blocksparse_gpu as bs
 
-    a, b, ref = _case("csr", density=0.1, seed=bm)
-    plan = bs.block_plan(a, bm, bk)
-    out = np.asarray(bs.spmm_blocksparse(plan, b, bn=bn,
-                                         num_warps=8 if bm == 128 else 4))
+    a, b, ref = _case("csr", density=0.1, seed=bm, n=n)
+    out = np.asarray(bs.spmm_blocksparse(plan_of(a, bm, bk), b))
     assert allclose(out, ref, 1e-2, 1e-3)
 
 

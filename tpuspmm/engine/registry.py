@@ -150,6 +150,19 @@ def _densify_ok(a, b, config):
             and a.sparsity >= th["densify_min_density"])
 
 
+def blocksparse_fits(a) -> bool:
+    """Does the block-sparse kernel's plan fit GATHER_MAX_BYTES?  Counted
+    from the triplets, without building a tile: a scattered matrix's plan
+    stores a whole tile per nonzero."""
+    from tpuspmm.kernels.blocksparse_gpu import plan_stats
+
+    return plan_stats(a).plan_bytes <= GATHER_MAX_BYTES
+
+
+def _blocksparse_ok(a, b, config):
+    return blocksparse_fits(a)
+
+
 def _blocksparse(a, b, config):
     from tpuspmm.kernels import blocksparse_gpu
 
@@ -192,10 +205,10 @@ def build_engines() -> Dict[str, Engine]:
     def blocksparse(number):
         return KernelVariant(
             number, "triton_blocksparse", _blocksparse,
-            "plan-time (32×32) tile densification, Pallas/Triton kernel: "
+            "plan-time (64×64) tile densification, Pallas/Triton kernel: "
             "each program walks its row block's tiles, B tile in shared "
             "memory, partial sums in registers",
-            requires_gpu=True)
+            admissible=_blocksparse_ok, requires_gpu=True)
 
     def compensated(number):
         return KernelVariant(

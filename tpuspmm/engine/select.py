@@ -6,9 +6,10 @@ sparsity pattern and pick the (format, kernel) pair.  The rules follow the
 dispatch thresholds measured on the card (kernels/dispatch.py):
 
 - real block structure (well-filled 4×4 blocks) → BSR, else CSR, with:
+- the block-sparse kernel's tiles filled and its grid large enough to
+  fill the card (kernels/dispatch.blocksparse_pays) → the Triton
+  block-sparse kernel;
 - dense enough, with an affordable dense A → densify + cuBLAS;
-- tiles of the block-sparse kernel well filled (pruned weights) → the
-  Triton block-sparse kernel;
 - low row-length variance with small max ⇒ ELL-friendly padding, gather
   + segment-sum;
 - otherwise (hyper-sparse, irregular) → CSR gather + segment-sum.
@@ -31,7 +32,6 @@ class SparsityStats:
     row_nnz_max: int
     row_nnz_cv: float  # coefficient of variation (imbalance)
     block_fill_4x4: float  # nnz density within nonempty (4, 4) blocks
-    tile_fill: float  # nnz density within the kernel's nonempty tiles
 
 
 def analyze(a) -> SparsityStats:
@@ -50,37 +50,30 @@ def analyze(a) -> SparsityStats:
         cap = nonempty * bh * bw
         return nonempty, (nnz / cap if cap else 0.0)
 
-    from tpuspmm.kernels.blocksparse_gpu import BK, BM
-
     _, fill4 = block_stats(4, 4)
-    _, tile_fill = block_stats(BM, BK)
 
     return SparsityStats(
         shape=(m, k), nnz=nnz, density=nnz / (m * k) if m * k else 0.0,
         row_nnz_mean=float(mean), row_nnz_max=int(row_counts.max()) if m else 0,
         row_nnz_cv=cv, block_fill_4x4=float(fill4),
-        tile_fill=float(tile_fill),
     )
 
 
 def select_format(a, n_width: int = 256) -> Tuple[str, str]:
     """Return (format, kernel_name) recommendation for this matrix."""
-    from tpuspmm.config import default_config
     from tpuspmm.engine.registry import gather_fits
-    from tpuspmm.kernels import blocksparse_gpu
-    from tpuspmm.kernels.dispatch import thresholds
+    from tpuspmm.kernels.dispatch import blocksparse_pays, thresholds
 
     stats = analyze(a)
     th = thresholds()
     # real block structure keeps its blocks: BSR whatever the kernel
     fmt = "bsr" if stats.block_fill_4x4 > 0.5 else "csr"
+    if blocksparse_pays(a, n_width):
+        return fmt, "triton_blocksparse"
     if (stats.density >= th["densify_min_density"]
             and stats.shape[0] * stats.shape[1] * 4
             <= th["densify_max_bytes"]):
         return fmt, "xla_densify_matmul"
-    if (stats.tile_fill >= th["blocksparse_min_fill"]
-            and blocksparse_gpu.runnable(default_config().interpret)):
-        return fmt, "triton_blocksparse"
     if fmt == "bsr":
         return "bsr", "xla_block_einsum"
     if (stats.row_nnz_cv < 0.5

@@ -13,10 +13,15 @@ products:
         C[i·bm : +bm, j·bn : +bn] = acc            # written once
 
 Nothing carries across programs.  The plain XLA version of the same plan
-(:func:`spmm_blockplan_xla`) gathers every tile's B rows into a
+(``bench/kernel_compare.py``) gathers every tile's B rows into a
 (n_tiles, bk, N) array in device memory, runs one batched product and
 segment-sums by row block; the kernel keeps the gathered B tile in
 shared memory and the partial sums in registers.
+
+A plan stores 4·bm·bk bytes (2· when bf16) per occupied tile, however
+few nonzeros the tile holds: :func:`plan_stats` gives its size and fill
+from the triplets alone, so the dispatcher can refuse a scattered matrix
+before any tile is built.
 
 Precision of every ``pl.dot``: operands are bf16 and products accumulate
 in f32.  Tiles store bf16 when every value round-trips bf16 losslessly
@@ -159,20 +164,59 @@ def build_block_plan(rows, cols, vals, shape: Tuple[int, int],
                      bm=bm, bk=bk, nnz=int(len(rows)))
 
 
-def block_plan(a, bm: int = BM, bk: int = BK) -> BlockPlan:
+def block_plan(a) -> BlockPlan:
     """Build (or fetch the plan cached on the container) for any format."""
     from tpuspmm.ops.xla import _cached_device, coo_view
 
     coo = coo_view(a)
     return _cached_device(
-        coo, ("block_plan", bm, bk),
+        coo, "block_plan",
         lambda: build_block_plan(np.asarray(coo.rows), np.asarray(coo.cols),
-                                 np.asarray(coo.values), coo.shape, bm, bk))
+                                 np.asarray(coo.values), coo.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanStats:
+    """What :func:`block_plan` would build, without building it."""
+
+    n_tiles: int
+    nnz: int
+    plan_bytes: int
+
+    @property
+    def fill(self) -> float:
+        slots = self.n_tiles * BM * BK
+        return self.nnz / slots if slots else 0.0
+
+
+def plan_stats(a) -> PlanStats:
+    """Tile count, fill and bytes of the container's plan, in O(nnz) from
+    the unique (row block, k-tile) keys (cached on the container)."""
+    from tpuspmm.ops.xla import _cached_device, coo_view
+
+    def build():
+        m, k = coo.shape
+        rows, cols, vals = dedupe_triplets(np.asarray(coo.rows),
+                                           np.asarray(coo.cols),
+                                           np.asarray(coo.values), k)
+        nkt = max(1, cdiv(k, BK))
+        n_tiles = max(1, len(np.unique((rows // BM) * nkt + cols // BK)))
+        itemsize = 2 if values_bf16_exact(vals) else 4
+        return PlanStats(n_tiles=n_tiles, nnz=int(len(rows)),
+                         plan_bytes=n_tiles * BM * BK * itemsize)
+
+    coo = coo_view(a)
+    return _cached_device(coo, "plan_stats", build)
 
 
 def pick_bn(n: int) -> int:
     """Output column tile: the whole width up to BN_MAX, a power of two."""
     return min(BN_MAX, max(16, pl.next_power_of_2(n)))
+
+
+def n_programs(m: int, n: int) -> int:
+    """The kernel's grid size for an (m × ·) plan at width n."""
+    return max(1, cdiv(m, BM)) * cdiv(n, pick_bn(n))
 
 
 def _split_dot(a, b):
@@ -210,14 +254,15 @@ def _kernel(row_ptr_ref, kt_ref, tiles_ref, b_ref, o_ref, *,
     o_ref[...] = acc
 
 
-@functools.partial(jax.jit, static_argnames=("m_pad", "bm", "bk", "bn",
-                                             "interpret", "num_warps"))
-def blocksparse_call(row_ptr, kt, tiles, b, *, m_pad, bm, bk, bn,
-                     interpret=False, num_warps=NUM_WARPS):
+@functools.partial(jax.jit, static_argnames=("m_pad", "bm", "bk",
+                                             "interpret"))
+def blocksparse_call(row_ptr, kt, tiles, b, *, m_pad, bm, bk,
+                     interpret=False):
     """One launch of the kernel: C (m_pad × n_pad) for a plan's device
     arrays and an unpadded B (rows past K and columns past N are masked
     in the kernel).  Callers slice C to (M, N)."""
     k, n = b.shape
+    bn = pick_bn(n)
     n_pad = round_up(n, bn)
     return pl.pallas_call(
         functools.partial(_kernel, bm=bm, bk=bk, bn=bn, k=k, n=n),
@@ -225,7 +270,7 @@ def blocksparse_call(row_ptr, kt, tiles, b, *, m_pad, bm, bk, bn,
         grid=(row_ptr.shape[0] - 1, n_pad // bn),
         in_specs=[pl.no_block_spec] * 4,
         out_specs=pl.BlockSpec((bm, bn), lambda i, j: (i, j)),
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
                                              num_stages=NUM_STAGES),
         backend="triton",
         interpret=interpret,
@@ -240,12 +285,11 @@ def runnable(interpret=None) -> bool:
     return should_interpret(interpret) or platform() == "gpu"
 
 
-def spmm_blocksparse(a_or_plan, b, interpret=None, bm: int = BM,
-                     bk: int = BK, bn=None, num_warps: int = NUM_WARPS):
+def spmm_blocksparse(a_or_plan, b, interpret=None):
     """C = A @ B through the block-sparse kernel (plan built and cached
     on the container at first use)."""
     plan = (a_or_plan if isinstance(a_or_plan, BlockPlan)
-            else block_plan(a_or_plan, bm, bk))
+            else block_plan(a_or_plan))
     interp = should_interpret(interpret)
     if not runnable(interp):
         raise RuntimeError(
@@ -259,31 +303,5 @@ def spmm_blocksparse(a_or_plan, b, interpret=None, bm: int = BM,
     row_ptr, _, kt, tiles = plan.device_arrays()
     out = blocksparse_call(row_ptr, kt, tiles, b,
                            m_pad=plan.n_row_blocks * plan.bm, bm=plan.bm,
-                           bk=plan.bk, bn=bn or pick_bn(n), interpret=interp,
-                           num_warps=num_warps)
+                           bk=plan.bk, interpret=interp)
     return out[:m, :n]
-
-
-@functools.partial(jax.jit, static_argnames=("n_rb", "bm", "bk"))
-def blockplan_xla(rb, kt, tiles, b, *, n_rb, bm, bk):
-    """The plain XLA version of the same plan: gather every tile's B rows
-    into a (n_tiles, bk, N) array, one batched f32 product at HIGHEST,
-    segment-sum by row block."""
-    k, n = b.shape
-    b = b.astype(jnp.float32)
-    nkt = cdiv(k, bk)
-    b_tiles = jnp.pad(b, ((0, nkt * bk - k), (0, 0))).reshape(nkt, bk, n)
-    prod = jnp.einsum("tmk,tkn->tmn",
-                      tiles.reshape(-1, bm, bk).astype(jnp.float32),
-                      b_tiles[kt], precision=jax.lax.Precision.HIGHEST)
-    out = jax.ops.segment_sum(prod, rb, num_segments=n_rb)
-    return out.reshape(n_rb * bm, n)
-
-
-def spmm_blockplan_xla(a_or_plan, b, bm: int = BM, bk: int = BK):
-    plan = (a_or_plan if isinstance(a_or_plan, BlockPlan)
-            else block_plan(a_or_plan, bm, bk))
-    _, rb, kt, tiles = plan.device_arrays()
-    out = blockplan_xla(rb, kt, tiles, jnp.asarray(b), n_rb=plan.n_row_blocks,
-                        bm=plan.bm, bk=plan.bk)
-    return out[:plan.shape[0]]

@@ -4,18 +4,20 @@ The runtime analogue of the reference's compile-time kernel numbering
 (reference/include/engine/engine_csr.hpp:68-89):
 
   extreme |values| (exact.needs_compensated)   → compensated f32
+  the block-sparse kernel can run, its plan
+      fits, its fill ≥ blocksparse_min_fill
+      and its grid ≥ blocksparse_min_programs  → Triton block-sparse
   density ≥ densify_min_density and
       dense A ≤ densify_max_bytes              → cached densify + cuBLAS
-  the block-sparse kernel can run and its
-      plan's fill ≥ blocksparse_min_fill       → Triton block-sparse
   density < gather_max_density and the
       gather intermediate fits                 → XLA gather + segment-sum
   otherwise                                    → cuSPARSE
 
 The numbers are per device, keyed by the ``device_kind`` JAX reports, and
-were measured on that card (PERF.md, "Findings": uniform 4096² density
-sweep, large_25605 and a Llama-2-7B-shaped 90% 4×4-block weight).  A GPU
-the table does not hold is an error; the ``cpu`` row exists for the tests.
+were measured on that card (PERF.md, "Findings": uniform density sweeps,
+large_25605 and Llama-2-7B-shaped block-pruned weights).  A GPU the table
+does not hold is an error; the ``cpu`` row exists for the tests, its
+kernel grid floor scaled to their matrices.
 """
 
 from __future__ import annotations
@@ -25,18 +27,21 @@ import jax.numpy as jnp
 from tpuspmm.formats import CSR, COO, BSR, ELL
 
 _DEVICE_THRESHOLDS = {
-    # H100 SXM: densify ties cuSPARSE at 10% uniform density and loses
-    # below it; the kernel wins where its tiles are well filled (10% on
-    # the block-pruned weight) and loses where they are not (1% on
-    # large_25605); among the rest the gather wins below ~1% density
-    # (0.1%, 0.5%, large_25605) and cuSPARSE above it (2%, 10%)
+    # H100 SXM (device time per call): the kernel's cost follows its
+    # occupied tiles, not its fill, and it needs a full card: at 128
+    # programs (4096², width 256) it lost to densify at every density
+    # 0.1-20%, at 512 and 688 programs it won at every fill measured
+    # (2-20%); densify ties cuSPARSE at 10% uniform density and loses
+    # below it; the gather and cuSPARSE trade places below ~1%
     "NVIDIA H100 80GB HBM3": {"densify_max_bytes": 256 * 1024 * 1024,
                               "densify_min_density": 0.15,
-                              "blocksparse_min_fill": 0.05,
+                              "blocksparse_min_fill": 0.02,
+                              "blocksparse_min_programs": 512,
                               "gather_max_density": 0.01},
     "cpu": {"densify_max_bytes": 128 * 1024 * 1024,
             "densify_min_density": 0.15,
-            "blocksparse_min_fill": 0.05,
+            "blocksparse_min_fill": 0.02,
+            "blocksparse_min_programs": 8,
             "gather_max_density": 0.01},
 }
 
@@ -71,31 +76,41 @@ def spmm_xla_any(a, b):
     raise TypeError(type(a))
 
 
+def blocksparse_pays(a, n: int, config=None) -> bool:
+    """Should the block-sparse kernel serve ``a`` at width ``n``?  Decided
+    from the plan's stats, so no tile is built for a matrix it does not
+    serve."""
+    from tpuspmm.config import default_config
+    from tpuspmm.engine.registry import blocksparse_fits
+    from tpuspmm.kernels import blocksparse_gpu as bs
+
+    config = config or default_config()
+    th = thresholds()
+    return (bs.runnable(config.interpret)
+            and bs.n_programs(a.shape[0], n) >= th["blocksparse_min_programs"]
+            and bs.plan_stats(a).fill >= th["blocksparse_min_fill"]
+            and blocksparse_fits(a))
+
+
 def choose_route(a, n: int, config=None) -> str:
     """Name of the route :func:`spmm_auto` serves ``a`` with at width
     ``n``."""
-    from tpuspmm.config import default_config
-    from tpuspmm.kernels import blocksparse_gpu
+    from tpuspmm.engine.registry import gather_fits
     from tpuspmm.ops import exact
 
-    config = config or default_config()
     # extreme-|value| matrices: a single f32 product's rounding can breach
     # the abs-1e-3 gate, so every plain-f32 route is operand luck there —
     # serve the deterministic compensated accumulation, when its
     # (m, W)-padded pass is affordable
     if exact.needs_compensated(a) and exact.exact_admissible(a):
         return "exact"
+    if blocksparse_pays(a, n, config):
+        return "blocksparse"
     th = thresholds()
     m, k = a.shape
     if (m * k * 4 <= th["densify_max_bytes"]
             and a.sparsity >= th["densify_min_density"]):
         return "densify"
-    if (blocksparse_gpu.runnable(config.interpret)
-            and blocksparse_gpu.block_plan(a).fill
-            >= th["blocksparse_min_fill"]):
-        return "blocksparse"
-    from tpuspmm.engine.registry import gather_fits
-
     if a.sparsity < th["gather_max_density"] and gather_fits(a, n):
         return "xla"
     return "vendor"
